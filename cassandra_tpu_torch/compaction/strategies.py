@@ -1,0 +1,450 @@
+"""Compaction strategies: which sstables to merge next.
+
+Reference counterparts:
+  AbstractCompactionStrategy.java:65 (SPI: getNextBackgroundTask)
+  SizeTieredCompactionStrategy.java:41 (size buckets, :248 getBuckets)
+  LeveledCompactionStrategy.java:47 + LeveledManifest.java:54
+  TimeWindowCompactionStrategy.java:52 (windows :174, expired drop :128)
+
+Strategies only *select*; CompactionTask does the work. Selection reads
+each sstable's Statistics.db metadata (size, level, max timestamp,
+max local-deletion-time).
+"""
+from __future__ import annotations
+
+import time
+
+from ..storage.sstable import SSTableReader
+from ..utils import timeutil
+
+
+class AbstractCompactionStrategy:
+    def __init__(self, cfs, options: dict | None = None,
+                 repaired: bool | None = None):
+        self.cfs = cfs
+        self.options = options or {}
+        # repaired/unrepaired split (CompactionStrategyManager.java:107):
+        # a strategy instance only ever sees ONE side of the boundary —
+        # None (tools/tests constructing a strategy directly) sees all
+        self.repaired = repaired
+        self.min_threshold = int(self.options.get("min_threshold", 4))
+        self.max_threshold = int(self.options.get("max_threshold", 32))
+
+    def candidates(self) -> list[SSTableReader]:
+        """The live sstables THIS strategy instance may select — never
+        across the repaired/unrepaired boundary."""
+        live = self.cfs.live_sstables()
+        if self.repaired is None:
+            return live
+        return [s for s in live if s.is_repaired == self.repaired]
+
+    def next_background_task(self):
+        """Return a CompactionTask or None (getNextBackgroundTask)."""
+        raise NotImplementedError
+
+    def major_task(self):
+        """Compact everything on THIS side of the repaired boundary."""
+        from .task import CompactionTask
+        live = self.candidates()
+        if len(live) < 1:
+            return None
+        return CompactionTask(self.cfs, live)
+
+    # ---- helpers
+
+    def _fully_expired(self) -> list[SSTableReader]:
+        """SSTables whose every cell is an expired tombstone older than
+        gc grace with no overlap concern (TWCS-style drop;
+        CompactionController.getFullyExpiredSSTables)."""
+        gc_before = timeutil.now_seconds() - \
+            self.cfs.table.params.gc_grace_seconds
+        out = []
+        live = self.cfs.live_sstables()   # overlap guard: ALL live
+        cands = self.candidates()
+        # the purge guard consults the memtable; dropping against a hot
+        # memtable could rewrite the sstable unchanged and re-select it
+        # forever (livelock) — wait for a flush instead
+        if not self.cfs.memtable.is_empty:
+            return out
+        for s in cands:
+            if s.max_ldt is None or s.max_ldt >= gc_before:
+                continue
+            if s.n_tombstones < s.n_cells:
+                continue  # has live data
+            # overlap guard: any other source with older data?
+            others = [o for o in live if o is not s]
+            if any(o.min_ts is not None and s.max_ts is not None
+                   and o.min_ts <= s.max_ts and self._token_overlap(o, s)
+                   for o in others):
+                continue
+            out.append(s)
+        return out
+
+    @staticmethod
+    def _token_overlap(a: SSTableReader, b: SSTableReader) -> bool:
+        return a.min_token() <= b.max_token() and b.min_token() <= a.max_token()
+
+
+class SizeTieredCompactionStrategy(AbstractCompactionStrategy):
+    """Bucket sstables of similar size; compact the biggest eligible
+    bucket (hottest-first is a refinement we skip: reference :116)."""
+
+    def __init__(self, cfs, options=None, repaired=None):
+        super().__init__(cfs, options, repaired)
+        self.bucket_low = float(self.options.get("bucket_low", 0.5))
+        self.bucket_high = float(self.options.get("bucket_high", 1.5))
+        self.min_sstable_size = int(self.options.get(
+            "min_sstable_size", 50 * 1024 * 1024))
+
+    def buckets(self) -> list[list[SSTableReader]]:
+        ssts = sorted(self.candidates(), key=lambda s: s.data_size)
+        buckets: list[tuple[float, list[SSTableReader]]] = []
+        for s in ssts:
+            size = s.data_size
+            for i, (avg, items) in enumerate(buckets):
+                if (self.bucket_low * avg <= size <= self.bucket_high * avg) \
+                        or (size < self.min_sstable_size
+                            and avg < self.min_sstable_size):
+                    items.append(s)
+                    buckets[i] = ((avg * (len(items) - 1) + size)
+                                  / len(items), items)
+                    break
+            else:
+                buckets.append((float(size), [s]))
+        return [items for _, items in buckets]
+
+    def next_background_task(self):
+        from .task import CompactionTask
+        candidates = [b for b in self.buckets()
+                      if len(b) >= self.min_threshold]
+        if not candidates:
+            return None
+        bucket = max(candidates, key=len)[: self.max_threshold]
+        return CompactionTask(self.cfs, bucket)
+
+
+class LeveledCompactionStrategy(AbstractCompactionStrategy):
+    """Simplified leveled strategy: L0 (flushes) -> L1..: non-overlapping
+    runs, each level `fanout` times larger (LeveledManifest semantics)."""
+
+    def __init__(self, cfs, options=None, repaired=None):
+        super().__init__(cfs, options, repaired)
+        self.max_sstable_bytes = int(float(self.options.get(
+            "sstable_size_in_mb", 160)) * 1024 * 1024)
+        self.fanout = int(self.options.get("fanout_size", 10))
+        self.l0_threshold = int(self.options.get("l0_threshold", 4))
+
+    def _levels(self) -> dict[int, list[SSTableReader]]:
+        levels: dict[int, list[SSTableReader]] = {}
+        for s in self.candidates():
+            levels.setdefault(s.level, []).append(s)
+        return levels
+
+    def _level_target_bytes(self, level: int) -> int:
+        return self.max_sstable_bytes * (self.fanout ** level)
+
+    def _overlapping(self, ssts, candidates):
+        lo = min(s.min_token() for s in ssts)
+        hi = max(s.max_token() for s in ssts)
+        return [c for c in candidates
+                if c.min_token() <= hi and lo <= c.max_token()]
+
+    def next_background_task(self):
+        from .task import CompactionTask
+        levels = self._levels()
+        # L0 -> L1 when enough flushes accumulated
+        l0 = levels.get(0, [])
+        if len(l0) >= self.l0_threshold:
+            chosen = l0[: self.max_threshold]
+            inputs = chosen + self._overlapping(chosen, levels.get(1, []))
+            return CompactionTask(self.cfs, inputs,
+                                  max_output_bytes=self.max_sstable_bytes,
+                                  level=1)
+        # level overflow: push one sstable into the next level
+        for lvl in sorted(l for l in levels if l > 0):
+            total = sum(s.data_size for s in levels[lvl])
+            if total > self._level_target_bytes(lvl):
+                victim = max(levels[lvl], key=lambda s: s.data_size)
+                inputs = [victim] + self._overlapping([victim],
+                                                      levels.get(lvl + 1, []))
+                return CompactionTask(self.cfs, inputs,
+                                      max_output_bytes=self.max_sstable_bytes,
+                                      level=lvl + 1)
+        return None
+
+
+class TimeWindowCompactionStrategy(AbstractCompactionStrategy):
+    """Time-series strategy: bucket by write-time window; STCS inside the
+    current window, one sstable per older window, drop fully-expired
+    sstables first (TimeWindowCompactionStrategy.java:83,128,174)."""
+
+    _UNITS = {"MINUTES": 60, "HOURS": 3600, "DAYS": 86400}
+
+    def __init__(self, cfs, options=None, repaired=None):
+        super().__init__(cfs, options, repaired)
+        unit = str(self.options.get("compaction_window_unit",
+                                    "DAYS")).upper()
+        size = int(self.options.get("compaction_window_size", 1))
+        self.window_seconds = self._UNITS.get(unit, 86400) * size
+
+    def _window_of(self, sst: SSTableReader) -> int:
+        # max timestamp is micros; windows are in seconds
+        return int((sst.max_ts or 0) // 1_000_000 // self.window_seconds)
+
+    def next_background_task(self):
+        from .task import CompactionTask
+        expired = self._fully_expired()
+        if expired:
+            # dropping needs no merge: rewrite-free task over expired
+            # only (task.py _execute_drop — deletes, never decodes)
+            return CompactionTask(self.cfs, expired, drop_only=True)
+        windows: dict[int, list[SSTableReader]] = {}
+        for s in self.candidates():
+            windows.setdefault(self._window_of(s), []).append(s)
+        if not windows:
+            return None
+        newest = max(windows)
+        for w, ssts in sorted(windows.items()):
+            if w == newest:
+                if len(ssts) >= self.min_threshold:
+                    return CompactionTask(self.cfs,
+                                          ssts[: self.max_threshold])
+            elif len(ssts) > 1:
+                return CompactionTask(self.cfs, ssts[: self.max_threshold])
+        return None
+
+
+class UnifiedCompactionStrategy(AbstractCompactionStrategy):
+    """Unified strategy (reference UnifiedCompactionStrategy.java:66,
+    unified/Controller.java:154, UnifiedCompactionStrategy.md):
+
+    * `scaling_parameters` is a PER-LEVEL VECTOR ("T4, T8, N, L4"):
+      level i uses W = vector[min(i, len-1)]. Positive W behaves tiered
+      (fanout 2+W, threshold 2+W), negative behaves leveled (fanout
+      2-W, threshold 2), N is the middle (fanout 2, threshold 2) —
+      UnifiedCompactionStrategy.fanoutFromScalingParameter /
+      thresholdFromScalingParameter.
+    * SSTables form DENSITY levels: boundaries start at
+      min_sstable_size x fanout(0) and each level's ceiling multiplies
+      by ITS OWN fanout (Controller.getMaxLevelDensity) — so a mixed
+      vector changes the level geometry, not just thresholds.
+    * Outputs are sharded density-aware (Controller.getNumShards): a
+      power-of-two multiple of `base_shard_count` chosen so each shard
+      lands near `target_sstable_size` x density^sstable_growth, with
+      the min-size clamp below the base count. The shard count is the
+      knob that parallelises one logical compaction across cores/chips
+      (ShardManager.java:33; parallel/mesh.py consumes these shards).
+    """
+
+    MAX_SHARD_SHIFT = 20
+
+    def __init__(self, cfs, options=None, repaired=None):
+        super().__init__(cfs, options, repaired)
+        spec = str(self.options.get("scaling_parameters", "T4"))
+        # the per-level W vector; levels beyond the end repeat the last
+        self.scaling_vector = self.parse_scaling_vector(spec)
+        self.base_shard_count = int(self.options.get("base_shard_count", 4))
+        self.min_sstable_size = int(self.options.get(
+            "min_sstable_size", 2 * 1024 * 1024))
+        self.target_sstable_size = int(self.options.get(
+            "target_sstable_size", 1 << 30))
+        self.sstable_growth = float(self.options.get("sstable_growth",
+                                                     0.333))
+
+    # ------------------------------------------------ scaling vector --
+
+    @staticmethod
+    def parse_scaling_vector(spec: str) -> list:
+        out = []
+        for part in str(spec).split(","):
+            part = part.strip().upper()
+            if not part:
+                continue
+            if part == "N":
+                out.append(0)
+            elif part.startswith("T"):
+                out.append(max(int(part[1:] or 4) - 2, 0))
+            elif part.startswith("L"):
+                out.append(-max(int(part[1:] or 4) - 2, 0))
+            else:
+                out.append(int(part))
+        return out or [2]
+
+    def scaling_w(self, level: int) -> int:
+        v = self.scaling_vector
+        return v[level] if level < len(v) else v[-1]
+
+    def fanout(self, level: int) -> int:
+        w = self.scaling_w(level)
+        return 2 - w if w < 0 else 2 + w
+
+    def threshold(self, level: int) -> int:
+        w = self.scaling_w(level)
+        return 2 if w <= 0 else 2 + w
+
+    # ------------------------------------------------- density levels --
+
+    def level_of(self, density: float) -> int:
+        """The density level an sstable of `density` bytes falls in:
+        level ceilings grow by each level's OWN fanout
+        (Controller.getMaxLevelDensity iterated)."""
+        ceiling = float(self.min_sstable_size) * self.fanout(0)
+        lvl = 0
+        while density >= ceiling and lvl < 64:
+            lvl += 1
+            ceiling *= self.fanout(lvl)
+        return lvl
+
+    def form_levels(self, sstables) -> dict:
+        levels: dict[int, list] = {}
+        for s in sstables:
+            levels.setdefault(self.level_of(float(s.data_size)),
+                              []).append(s)
+        return levels
+
+    # ------------------------------------------------ shard geometry --
+
+    def num_shards(self, density: float) -> int:
+        """Controller.getNumShards: power-of-two multiple of the base
+        count targeting target_sstable_size x growth correction, with
+        the min-size clamp below the base."""
+        import math
+
+        if self.min_sstable_size > 0:
+            count = density / self.min_sstable_size
+            if not count >= self.base_shard_count:
+                # below the base: power-of-two DIVISOR of the base so
+                # boundaries still align with higher levels
+                low_bit = self.base_shard_count & -self.base_shard_count
+                return min(1 << max(int(count) | 1, 1).bit_length() - 1,
+                           low_bit)
+        g = self.sstable_growth
+        if g >= 1:
+            return self.base_shard_count
+        if g <= 0:
+            count = density / (self.target_sstable_size * math.sqrt(0.5)
+                               * self.base_shard_count)
+            count = min(count, float(1 << self.MAX_SHARD_SHIFT))
+            return self.base_shard_count *                 (1 << max(int(count) | 1, 1).bit_length() - 1)
+        # partial growth: exponent of the density/target ratio scaled by
+        # (1 - growth), rounded to the nearest power of two
+        count = density / (self.target_sstable_size
+                           * self.base_shard_count)
+        if count <= 0:
+            return self.base_shard_count
+        exponent = int(max(0, min(
+            math.floor(math.log2(count) * (1 - g) + 0.5),
+            self.MAX_SHARD_SHIFT)))
+        return self.base_shard_count * (1 << exponent)
+
+    # -------------------------------------------------- task selection --
+
+    def next_background_task(self):
+        from .task import CompactionTask
+        levels = self.form_levels(self.candidates())
+        for lvl in sorted(levels):
+            group = levels[lvl]
+            if len(group) >= self.threshold(lvl):
+                inputs = group[: self.max_threshold]
+                total = float(sum(s.data_size for s in inputs))
+                shards = self.num_shards(total)
+                shard_bytes = max(int(total // shards),
+                                  self.min_sstable_size)
+                return CompactionTask(self.cfs, inputs,
+                                      max_output_bytes=shard_bytes,
+                                      level=lvl + 1)
+        return None
+
+
+STRATEGIES = {
+    "SizeTieredCompactionStrategy": SizeTieredCompactionStrategy,
+    "LeveledCompactionStrategy": LeveledCompactionStrategy,
+    "TimeWindowCompactionStrategy": TimeWindowCompactionStrategy,
+    "UnifiedCompactionStrategy": UnifiedCompactionStrategy,
+}
+
+
+class CompactionStrategyManager:
+    """Holds one strategy instance per side of the repaired boundary and
+    never lets a compaction cross it
+    (db/compaction/CompactionStrategyManager.java:107). Background
+    selection serves whichever side has work; major compaction runs each
+    side as its own task."""
+
+    def __init__(self, cfs, cls, opts):
+        self.cfs = cfs
+        self.unrepaired = cls(cfs, opts, repaired=False)
+        self.repaired = cls(cfs, opts, repaired=True)
+
+    def __getattr__(self, name):
+        # strategy-specific helpers (tests/tools introspection) resolve
+        # against the unrepaired instance
+        return getattr(self.unrepaired, name)
+
+    def next_background_task(self):
+        return self.unrepaired.next_background_task() \
+            or self.repaired.next_background_task()
+
+    def major_task(self):
+        tasks = [t for t in (self.unrepaired.major_task(),
+                             self.repaired.major_task()) if t is not None]
+        if not tasks:
+            return None
+        return _SequentialTasks(tasks)
+
+
+class _SequentialTasks:
+    """Several group-local tasks behind the single-task call surface."""
+
+    def __init__(self, tasks):
+        self.tasks = tasks
+        self.inputs = [s for t in tasks for s in t.inputs]
+
+    # executor plumbing (CompactionManager._execute_task assigns these):
+    # forward to every wrapped task so the shared throttle and the
+    # progress handle cover all groups, not just the wrapper object
+
+    @property
+    def limiter(self):
+        return self.tasks[0].limiter if self.tasks else None
+
+    @limiter.setter
+    def limiter(self, v):
+        for t in self.tasks:
+            t.limiter = v
+
+    @property
+    def progress(self):
+        return self.tasks[0].progress if self.tasks else None
+
+    @progress.setter
+    def progress(self, v):
+        for t in self.tasks:
+            t.progress = v
+
+    def execute(self) -> dict:
+        stats = None
+        for t in self.tasks:
+            st = t.execute()
+            if stats is None:
+                stats = st
+            else:
+                for k in ("bytes_read", "bytes_written", "cells_read",
+                          "cells_written", "seconds"):
+                    stats[k] += st[k]
+                stats["outputs"] += st["outputs"]
+                stats["inputs"] += st["inputs"]
+        if stats and stats.get("seconds"):
+            stats["read_mib_s"] = stats["bytes_read"] / stats["seconds"] \
+                / 2**20
+            stats["write_mib_s"] = stats["bytes_written"] \
+                / stats["seconds"] / 2**20
+        return stats
+
+
+def get_strategy(cfs) -> CompactionStrategyManager:
+    opts = dict(cfs.table.params.compaction)
+    name = opts.pop("class", "SizeTieredCompactionStrategy").rsplit(".", 1)[-1]
+    if name not in STRATEGIES:
+        raise ValueError(f"unknown compaction strategy {name}")
+    return CompactionStrategyManager(cfs, STRATEGIES[name], opts)

@@ -1,0 +1,504 @@
+"""Typed node configuration — the DatabaseDescriptor role.
+
+Reference counterparts: config/Config.java (typed field catalog),
+config/DatabaseDescriptor.java (validated access + mutable runtime
+settings), config/DurationSpec.java / DataStorageSpec.java /
+DataRateSpec.java (unit-string parsing: "10s", "16KiB", "64MiB/s").
+
+Design: one frozen-shape dataclass of typed fields with reference
+defaults; loading validates types, parses unit specs, and REJECTS unknown
+keys (the reference fails startup on unrecognised yaml keys too). A
+subset of fields is runtime-mutable (DatabaseDescriptor setters exposed
+through nodetool/JMX in the reference; here through Settings.set, the
+settings virtual table and nodetool) with change listeners so subsystems
+(compaction throttle, guardrails, hint windows) react without restart.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+
+class ConfigError(Exception):
+    pass
+
+
+# ------------------------------------------------------------ unit specs --
+
+_DUR_UNITS = {"ns": 1e-9, "us": 1e-6, "ms": 1e-3, "s": 1.0,
+              "m": 60.0, "h": 3600.0, "d": 86400.0}
+_SIZE_UNITS = {"B": 1, "KiB": 1024, "MiB": 1024 ** 2, "GiB": 1024 ** 3}
+
+
+def parse_duration(v, default_unit: str = "ms") -> float:
+    """DurationSpec: '10s' / '200ms' / '1h' / bare number (default_unit).
+    Returns seconds."""
+    if isinstance(v, bool):
+        raise ConfigError(f"invalid duration spec: {v!r}")
+    if isinstance(v, (int, float)):
+        return float(v) * _DUR_UNITS[default_unit]
+    m = re.fullmatch(r"\s*(\d+(?:\.\d+)?)\s*(ns|us|ms|s|m|h|d)\s*", str(v))
+    if not m:
+        raise ConfigError(f"invalid duration spec: {v!r}")
+    return float(m.group(1)) * _DUR_UNITS[m.group(2)]
+
+
+def parse_storage(v, default_unit: str = "B") -> int:
+    """DataStorageSpec: '16KiB' / '32MiB' / bare number. Returns bytes."""
+    if isinstance(v, bool):
+        raise ConfigError(f"invalid storage spec: {v!r}")
+    if isinstance(v, (int, float)):
+        return int(v) * _SIZE_UNITS[default_unit]
+    m = re.fullmatch(r"\s*(\d+)\s*(B|KiB|MiB|GiB)\s*", str(v))
+    if not m:
+        raise ConfigError(f"invalid storage spec: {v!r}")
+    return int(m.group(1)) * _SIZE_UNITS[m.group(2)]
+
+
+def parse_rate(v) -> float:
+    """DataRateSpec: '64MiB/s' / bare number (MiB/s). Returns MiB/s."""
+    if isinstance(v, bool):
+        raise ConfigError(f"invalid rate spec: {v!r}")
+    if isinstance(v, (int, float)):
+        return float(v)
+    m = re.fullmatch(r"\s*(\d+(?:\.\d+)?)\s*(B|KiB|MiB|GiB)/s\s*", str(v))
+    if not m:
+        raise ConfigError(f"invalid rate spec: {v!r}")
+    return float(m.group(1)) * _SIZE_UNITS[m.group(2)] / _SIZE_UNITS["MiB"]
+
+
+# A field whose yaml value is a unit spec string. kind: duration|storage|rate
+def spec(kind: str, default, mutable: bool = False):
+    return field(default=default,
+                 metadata={"spec": kind, "mutable": mutable})
+
+
+def mut(default):
+    return field(default=default, metadata={"mutable": True})
+
+
+@dataclass
+class Config:
+    """Typed catalog of node settings. Field names follow
+    conf/cassandra.yaml; durations are SECONDS, sizes BYTES, rates MiB/s
+    after parsing. Fields marked mutable may change at runtime."""
+
+    # identity / topology (cassandra.yaml:10-25)
+    cluster_name: str = "Test Cluster"
+    num_tokens: int = 16
+    partitioner: str = "Murmur3Partitioner"
+    endpoint_snitch: str = "SimpleSnitch"
+    dc: str = "dc1"
+    rack: str = "rack1"
+
+    # storage locations (cassandra.yaml:73-120)
+    data_file_directories: list = field(default_factory=list)
+    commitlog_directory: str = ""
+    saved_caches_directory: str = ""
+    hints_directory: str = ""
+
+    # commitlog (cassandra.yaml:419-480)
+    commitlog_sync: str = "periodic"            # periodic | batch | group
+    commitlog_sync_period: float = spec("duration", 10.0)
+    # group-commit window: minimum spacing between fsyncs under
+    # commitlog_sync: group (GroupCommitLogService's
+    # commitlog_sync_group_window); writers arriving inside the window
+    # coalesce into the next sync. Seconds after parsing ("10ms").
+    commitlog_sync_group_window: float = spec("duration", 0.010,
+                                              mutable=True)
+    commitlog_segment_size: int = spec("storage", 32 * 1024 * 1024)
+    commitlog_compression: str = ""             # codec name or ""
+    cdc_enabled: bool = False
+
+    # memtable / flush (cassandra.yaml:903-916)
+    memtable_flush_writers: int = 2
+    memtable_cleanup_threshold: float = 0.25
+    memtable_heap_space: int = spec("storage", 256 * 1024 * 1024)
+    # token-range shards per memtable (TrieMemtable shard count role):
+    # 0 = auto (8 with the write fast lane on, 1 with it off)
+    memtable_shards: int = 0
+
+    # compaction (cassandra.yaml:1217-1250)
+    concurrent_compactors: int = mut(1)
+    # compressor-worker pool for the bulk write path (compaction +
+    # flush share it; storage/sstable/compress_pool.py): segments
+    # compress concurrently and re-sequence through an ordered
+    # completion queue, so output bytes are identical for any size.
+    # 0 = auto (one worker per core, capped); hot-resizable.
+    compaction_compressor_threads: int = mut(0)
+    # mesh execution mode of the data plane (docs/multichip.md):
+    # compaction tasks and large batched/range reads shard by
+    # count-weighted token-range boundaries and fan across N mesh
+    # lanes (jax devices for the device engine, GIL-releasing host
+    # threads for the native/numpy engines). Output bytes are
+    # identical to the serial paths for any N. 0 = off; hot-reloadable.
+    compaction_mesh_devices: int = mut(0)
+    # decode-ahead prefetch: a compaction helper thread decodes round
+    # k+1's input segments while round k merges and its output
+    # compresses (the LUDA decode/merge overlap; compaction/task.py).
+    # Strictly handshaked, so round boundaries — and output bytes —
+    # are identical either way. Engine-scoped like
+    # compaction_mesh_devices and hot-reloadable: tasks re-read it
+    # every round, so a mid-compaction flip stops (or restarts) the
+    # prefetch thread at the next round boundary. Default on; the
+    # device engine's serial round loop keeps its own submit/collect
+    # pipelining instead.
+    compaction_decode_ahead: bool = mut(True)
+    # device-side block compression (ops/device_compress.py): device-
+    # resident compaction rounds hand the host segments ALREADY
+    # LZ4-compressed by the policy encoder's fused jax kernel, leaving
+    # the host io thread a pwrite pump. Output bytes are identical on
+    # or off (the native packer runs the same deterministic policy) —
+    # this knob only moves the compress work between device and host.
+    # Engine-scoped and hot-reloadable: the writer re-reads it per
+    # segment, so a mid-compaction flip takes effect at the next
+    # segment boundary. Only device-resident tasks consult it.
+    compaction_device_compress: bool = mut(True)
+    # device predicate/aggregate kernels for analytical scans
+    # (ops/device_scan.py): scan_filtered evaluates pushdown predicates
+    # with the jitted key-compare kernels instead of the numpy host
+    # reference. Results are identical on or off (the host reference is
+    # pinned bit-identical by check_scan_ab.py) — the knob only moves
+    # the mask/fold work between device and host. Engine-scoped and
+    # hot-reloadable: the scan consults it PER SEGMENT, so a mid-scan
+    # flip takes effect at the next segment boundary.
+    scan_device_filter: bool = mut(True)
+    compaction_throughput: float = spec("rate", 64.0, mutable=True)
+    # modern-yaml name for the same throttle (DataRateSpec
+    # compaction_throughput_mib_per_sec). Negative = unset: the engine
+    # falls back to compaction_throughput; setting either at runtime
+    # reaches the live limiter.
+    compaction_throughput_mib_per_sec: float = spec("rate", -1.0,
+                                                    mutable=True)
+    sstable_preemptive_open_interval: int = spec("storage",
+                                                 50 * 1024 * 1024)
+
+    # streaming / hints (cassandra.yaml / hints section); both throughput
+    # knobs feed the stream sender's token bucket (cluster/
+    # stream_session.py), hot-reloadable via the Node settings listeners
+    stream_throughput_outbound: float = spec("rate", 24.0, mutable=True)
+    inter_dc_stream_throughput_outbound: float = spec("rate", 24.0,
+                                                      mutable=True)
+    hinted_handoff_enabled: bool = mut(True)
+    max_hint_window: float = spec("duration", 3 * 3600.0, mutable=True)
+    hints_flush_period: float = spec("duration", 10.0)
+
+    # request timeouts (cassandra.yaml:1320-1360), mutable like
+    # DatabaseDescriptor.setReadRpcTimeout etc.
+    read_request_timeout: float = spec("duration", 5.0, mutable=True)
+    range_request_timeout: float = spec("duration", 10.0, mutable=True)
+    write_request_timeout: float = spec("duration", 2.0, mutable=True)
+    counter_write_request_timeout: float = spec("duration", 5.0,
+                                                mutable=True)
+    # ctpulint: allow(knob-wiring, reason=paxos contention backoff is attempt-count bounded today (cluster/paxos.py); the knob binds when contention waits become deadline-based)
+    cas_contention_timeout: float = spec("duration", 1.0, mutable=True)
+    # ctpulint: allow(knob-wiring, reason=TRUNCATE executes synchronously against local stores plus a fire-and-forget ring broadcast - there is no blocking wait to bound yet)
+    truncate_request_timeout: float = spec("duration", 60.0, mutable=True)
+    # ctpulint: allow(knob-wiring, reason=yaml-parity blanket alias; the wired per-operation knobs (read/write/range/counter_write_request_timeout) are the operative controls and the proxy.timeout blanket setter covers test use)
+    request_timeout: float = spec("duration", 10.0, mutable=True)
+
+    # failure detection / gossip
+    phi_convict_threshold: float = mut(8.0)
+    gossip_interval: float = spec("duration", 1.0)
+
+    # native transport
+    native_transport_port: int = 9042
+    native_transport_max_frame_size: int = spec("storage",
+                                                16 * 1024 * 1024)
+    # ctpulint: allow(knob-wiring, reason=the event-loop server bounds load by in-flight REQUESTS (the permit gate) not connection count; a per-connection cap adds nothing until per-IP accounting exists. Default -1 is disabled.)
+    native_transport_max_concurrent_connections: int = mut(-1)
+    # event-loop front door (transport/server.py): selector threads
+    # multiplexing all client sockets (Netty boss/worker role) and the
+    # bounded request-dispatch executor decoupling protocol I/O from
+    # query execution (Dispatcher.java role)
+    native_transport_event_loops: int = 2
+    native_transport_max_threads: int = 4
+    # admission control: permits bounding in-flight (queued + executing)
+    # requests — exhaustion answers OVERLOADED instead of queueing;
+    # <= 0 disables the gate. Hot-reloadable.
+    native_transport_max_concurrent_requests: int = mut(256)
+    # per-client request rate limit in ops/s (4.1's
+    # native_transport_rate_limiting role); 0 disables. Hot-reloadable
+    # like compaction_throughput_mib_per_sec.
+    native_transport_rate_limit_ops: int = mut(0)
+    # prepared-statement registry LRU bound, in STATEMENTS (the
+    # reference's prepared_statements_cache_size is MiB-denominated;
+    # a count is the honest unit for this in-memory registry).
+    # <= 0 = unbounded. Hot-reloadable; eviction counts
+    # prepared_statements.evicted and an EXECUTE against an evicted id
+    # returns the v4/v5 UNPREPARED error so drivers re-prepare.
+    prepared_statements_cache_size: int = mut(1024)
+
+    # internode
+    storage_port: int = 7000
+    internode_compression: str = "none"         # none | all | dc
+    # verb-dispatch pool width per node (cluster/messaging.py): inbound
+    # verb handlers execute on N pool workers behind the distributor
+    # thread, so replica-side verbs scale with cores instead of
+    # serializing behind one fsync-bound handler; response callbacks
+    # stay ordered on the distributor. 0 = auto (one worker per core,
+    # capped — every in-process node runs its own pool). Hot-resizable;
+    # node shutdown withdraws the demand with the pool.
+    internode_dispatch_threads: int = mut(0)
+
+    # caches (cassandra.yaml key/row/counter cache section)
+    key_cache_size: int = spec("storage", 50 * 1024 * 1024, mutable=True)
+    row_cache_size: int = spec("storage", 0, mutable=True)
+    # modern MiB-count knob for the shared row cache
+    # (storage/row_cache.py). Negative = unset: fall back to a non-zero
+    # row_cache_size, then the built-in default; 0 disables caching
+    # even for tables that opted in via WITH caching.
+    row_cache_size_mib: int = mut(-1)
+    # ctpulint: allow(knob-wiring, reason=the counter-shard cache (cluster/counters.py) is unbounded-small per leader today; the byte cap binds when it grows an LRU)
+    counter_cache_size: int = spec("storage", 25 * 1024 * 1024,
+                                   mutable=True)
+    # ctpulint: allow(knob-wiring, reason=the engine does not own an AutoSavingCache instance - storage/saved_caches.py takes period= from whoever constructs it (tests/operators); the knob binds when the engine grows a saver)
+    cache_save_period: float = spec("duration", 14400.0, mutable=True)
+
+    # failure handling (cassandra.yaml disk_failure_policy /
+    # commit_failure_policy; storage/failures.py validates values and
+    # reacts to runtime changes). Defaults diverge from the reference's
+    # stop/stop deliberately: best_effort quarantines corrupt sstables
+    # and keeps serving, ignore preserves the pre-policy commitlog
+    # behavior — docs/fault-tolerance.md discusses the trade.
+    disk_failure_policy: str = mut("best_effort")
+    commit_failure_policy: str = mut("ignore")
+
+    # security
+    authenticator: str = "AllowAllAuthenticator"
+    authorizer: str = "AllowAllAuthorizer"
+    network_authorizer: str = "AllowAllNetworkAuthorizer"
+    cidr_authorizer: str = "AllowAllCIDRAuthorizer"
+    auth_cache_validity: float = spec("duration", 2.0, mutable=True)
+
+    # misc operations
+    incremental_backups: bool = mut(False)
+    auto_snapshot: bool = True
+    snapshot_before_compaction: bool = False
+    # ctpulint: allow(knob-wiring, reason=byte-denominated batch thresholds have no serialized-size checkpoint on the batch path yet; the statement-count guardrails (guardrails.batch_statements_warn/fail) are the active control)
+    batch_size_warn_threshold: int = spec("storage", 5 * 1024,
+                                          mutable=True)
+    # ctpulint: allow(knob-wiring, reason=same as batch_size_warn_threshold - no serialized-size checkpoint yet)
+    batch_size_fail_threshold: int = spec("storage", 50 * 1024,
+                                          mutable=True)
+    tombstone_warn_threshold: int = mut(1000)
+    tombstone_failure_threshold: int = mut(100_000)
+    column_index_size: int = spec("storage", 64 * 1024)
+    trace_probability: float = mut(0.0)
+    slow_query_log_timeout: float = spec("duration", 0.5, mutable=True)
+    # bounded ring of slow-query entries kept for the
+    # system_views.slow_queries vtable (service/monitoring.py); the
+    # capacity is hot-reloadable like the threshold
+    slow_query_log_entries: int = mut(100)
+    # diagnostic event bus (service/diagnostics.py,
+    # DiagnosticEventService role): OFF by default like the reference's
+    # diagnostic_events_enabled — publish sites cost one branch while
+    # disabled. Hot-reloadable; the flight recorder folds published
+    # events regardless of when the knob flips.
+    diagnostic_events_enabled: bool = mut(False)
+    # metrics-history sampler (service/history.py, the workload
+    # observatory): OFF by default — while disabled no sampler thread
+    # exists and nothing is captured (the diagnostic-bus zero-cost
+    # rule). Hot-reloadable; flipping on starts the engine's sampler,
+    # flipping off stops it (retained rings survive the flip so the
+    # history up to the stop stays queryable).
+    metrics_history_enabled: bool = mut(False)
+    # fixed sampling interval for the raw ring ("10s"); hot-reloadable
+    # — the running sampler picks the new period up on its next tick.
+    # The raw ring holds 360 samples (1 h at the default) and every 30
+    # raw samples downsample into one coarse bucket (288 kept ≈ 24 h),
+    # min/max/last/sum-preserving.
+    metrics_history_interval: float = spec("duration", 10.0,
+                                           mutable=True)
+    # adaptive compaction controller (control/loop.py, ROADMAP item 1):
+    # the observe/decide/actuate loop over the metrics-history rings and
+    # amplification gauges. OFF by default — while disabled no decision
+    # thread exists and nothing is classified (the diagnostic-bus
+    # zero-cost rule); `tick()` stays callable on demand. ENGINE-scoped
+    # like metrics_history_enabled: each engine owns its controller.
+    adaptive_compaction_enabled: bool = mut(False)
+    # fixed decision interval ("30s"); hot-reloadable — a parked loop
+    # wakes and applies the new period immediately.
+    adaptive_compaction_interval: float = spec("duration", 30.0,
+                                               mutable=True)
+    # per-table cooldown after an applied strategy change: no further
+    # strategy change for the table inside this window (the anti-flap
+    # half of the hysteresis policy, docs/adaptive-compaction.md).
+    adaptive_compaction_cooldown: float = spec("duration", 300.0,
+                                               mutable=True)
+    # consecutive ticks a CANDIDATE regime must persist before the
+    # controller actuates it (the confirmation half of hysteresis).
+    adaptive_compaction_confirm_ticks: int = mut(2)
+    # continuous wall-clock profiler (service/sampler.py, observability
+    # layer 6): the always-on low-overhead ring. OFF by default —
+    # while no engine demands it no sampler thread exists and nothing
+    # is captured (the diagnostic-bus zero-cost rule); on-demand
+    # sessions (`nodetool profiler start`) run regardless of the knob,
+    # and `sample_once()` stays callable. The sampler is PROCESS-global
+    # (threads are process-wide), so the knob follows the bus demand
+    # pattern: each engine adds/withdraws only its own demand.
+    profiler_enabled: bool = mut(False)
+    # sampling period for the wall-clock profiler ("50ms" = 20 Hz);
+    # hot-reloadable — a parked sampler wakes and applies the new
+    # period immediately. Floored at 5 ms so a zero knob cannot boot a
+    # busy-spin sampler.
+    profiler_interval: float = spec("duration", 0.05, mutable=True)
+    # retrace sentinel (service/profiling.py registry): a device
+    # program whose by-shape compile count crosses this budget
+    # publishes a `profile.retrace` diagnostic event and counts every
+    # further recompile in `profile.retraces` — shape-bucket churn is
+    # caught the tick it happens. <= 0 disables the sentinel.
+    # Process-global like the registry (last writer wins across
+    # co-hosted engines, same as the shared device).
+    profiler_retrace_budget: int = mut(16)
+    # bound on ColumnFamilyStore.compaction_history (newest kept):
+    # the per-compaction stats ring behind compactionhistory /
+    # system_views.compaction_history. <= 0 = unbounded (the
+    # pre-bound behavior). Hot-reloadable per store.
+    compaction_history_entries: int = mut(256)
+    # SLO layer (service/slo.py): {objective name: p99 target ms}
+    # overrides/additions for the engine's SLO registry. Hot-reloadable
+    # — the saturation matrix retargets per leg through this knob;
+    # naming a histogram with no existing objective registers a new
+    # objective over it (per-CL rows like client_requests.read.quorum).
+    slo_targets: dict = field(default_factory=dict,
+                              metadata={"mutable": True})
+
+    # guardrail overrides (db/guardrails/GuardrailsOptions.java) — passed
+    # through to storage/guardrails.py field-for-field
+    guardrails: dict = field(default_factory=dict)
+
+    # free-form transparent data encryption block (storage/encryption.py)
+    transparent_data_encryption: dict = field(default_factory=dict)
+
+    # ------------------------------------------------------------- load --
+
+    @classmethod
+    def load(cls, raw: dict) -> "Config":
+        """Validate + coerce a raw dict (parsed yaml/json). Unknown keys
+        and mis-typed values raise ConfigError (startup must fail loudly,
+        DatabaseDescriptor.applyAll behavior)."""
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        out = {}
+        for k, v in raw.items():
+            f = fields.get(k)
+            if f is None:
+                raise ConfigError(f"unknown config key: {k!r}")
+            out[k] = cls._coerce(f, v)
+        return cls(**out)
+
+    @staticmethod
+    def _coerce(f: dataclasses.Field, v: Any):
+        kind = f.metadata.get("spec")
+        try:
+            if kind == "duration":
+                return parse_duration(v)
+            if kind == "storage":
+                return parse_storage(v)
+            if kind == "rate":
+                return parse_rate(v)
+            if f.type in ("int", int):
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    raise ConfigError(f"{f.name}: expected int, got {v!r}")
+                return int(v)
+            if f.type in ("float", float):
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    raise ConfigError(
+                        f"{f.name}: expected number, got {v!r}")
+                return float(v)
+            if f.type in ("bool", bool):
+                if not isinstance(v, bool):
+                    raise ConfigError(f"{f.name}: expected bool, got {v!r}")
+                return v
+            if f.type in ("str", str):
+                if not isinstance(v, str):
+                    raise ConfigError(f"{f.name}: expected str, got {v!r}")
+                return v
+            if f.type in ("list", list):
+                if not isinstance(v, list):
+                    raise ConfigError(f"{f.name}: expected list, got {v!r}")
+                return list(v)
+            if f.type in ("dict", dict):
+                if not isinstance(v, dict):
+                    raise ConfigError(f"{f.name}: expected dict, got {v!r}")
+                return dict(v)
+        except ConfigError:
+            raise
+        except Exception as e:
+            raise ConfigError(f"{f.name}: {e}") from e
+        return v
+
+    def mutable_fields(self) -> set:
+        return {f.name for f in dataclasses.fields(self)
+                if f.metadata.get("mutable")}
+
+
+class Settings:
+    """Runtime settings surface over a Config: typed get/set with change
+    listeners. The reference exposes these via JMX/nodetool (e.g.
+    `nodetool setcompactionthroughput`) and the system_views.settings
+    virtual table; both route through here."""
+
+    def __init__(self, config: Config | None = None):
+        self.config = config or Config()
+        self._mutable = self.config.mutable_fields()
+        self._fields = {f.name: f for f in dataclasses.fields(Config)}
+        self._listeners: dict[str, list[Callable]] = {}
+        self._lock = threading.Lock()
+
+    def get(self, name: str):
+        if name not in self._fields:
+            raise ConfigError(f"unknown setting: {name!r}")
+        return getattr(self.config, name)
+
+    def set(self, name: str, value, source: str = "operator") -> None:
+        """Hot-set a mutable setting (validated/coerced like load).
+        `source` names the ACTOR for the config.reload diagnostic event:
+        "operator" (nodetool / settings vtable, the default) or
+        "controller" (the adaptive compaction loop) — flight-recorder
+        bundles must distinguish human from controller actuation."""
+        f = self._fields.get(name)
+        if f is None:
+            raise ConfigError(f"unknown setting: {name!r}")
+        if name not in self._mutable:
+            raise ConfigError(f"setting {name!r} is not mutable at runtime")
+        coerced = Config._coerce(f, value)
+        with self._lock:
+            old = getattr(self.config, name)
+            setattr(self.config, name, coerced)
+            listeners = list(self._listeners.get(name, []))
+        for cb in listeners:
+            cb(coerced)
+        # hot knob reloads are diagnostic events (the flight recorder
+        # wants "what changed right before it broke — and WHO changed
+        # it"); no-op while the bus is disabled
+        from .service import diagnostics
+        diagnostics.publish("config.reload", name=name,
+                            value=repr(coerced), old=repr(old),
+                            actor=source)
+
+    def on_change(self, name: str, cb: Callable) -> None:
+        if name not in self._fields:
+            raise ConfigError(f"unknown setting: {name!r}")
+        with self._lock:
+            self._listeners.setdefault(name, []).append(cb)
+
+    def remove_listener(self, name: str, cb: Callable) -> None:
+        """Unregister (engine/proxy close paths — a Settings may outlive
+        one engine instance across in-process restarts)."""
+        with self._lock:
+            subs = self._listeners.get(name, [])
+            if cb in subs:
+                subs.remove(cb)
+
+    def all(self) -> list[tuple[str, str, bool]]:
+        """(name, rendered value, mutable) rows — the settings vtable."""
+        rows = []
+        for name in sorted(self._fields):
+            v = getattr(self.config, name)
+            rows.append((name, repr(v) if isinstance(v, (dict, list))
+                         else str(v), name in self._mutable))
+        return rows

@@ -1,0 +1,186 @@
+"""Token-range boundary planning + mesh.* shard metrics — the jax-FREE
+half of the mesh data plane (the ShardManager.computeBoundaries role).
+
+These helpers are pure numpy and serve the host-engine mesh paths
+(batched reads, range scans, native/numpy mesh compaction) that must
+not pay mesh.py's module-level jax import. mesh.py re-exports
+everything here so `parallel.mesh` imports keep working.
+
+Boundary planning is count-weighted over DISTINCT cells: weighting by
+raw input cells puts a hot, heavily-duplicated partition's shard at the
+target input size but a fraction of the target OUTPUT size (the skewed
+multichip sweep measured 21x kept-cell spread, 6.2k vs 130k).
+Duplicates collapse in the merge, so the planner weights each token by
+its distinct-identity count — from the batch itself
+(`distinct_token_weights`) or, on the real compaction/read paths, from
+the input sstables' partition directories (`boundaries_from_indexes`:
+per-sstable per-partition cell counts, max-combined across inputs as
+the distinct estimate).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+_BIAS = np.uint64(1 << 63)
+
+
+def plan_token_boundaries(uniq_tokens: np.ndarray, weights: np.ndarray,
+                          n_shards: int) -> np.ndarray:
+    """Greedy count-weighted quantile boundaries over DISTINCT tokens
+    (ShardManager.computeBoundaries role). Returns the LAST token of
+    each of the first n_shards-1 shards (uint64, biased token space);
+    assignment is `searchsorted(bounds, tok, side='left')`, so equal
+    tokens always stay together. Each boundary is chosen against the
+    weight still unassigned, so a hot token that overshoots its shard's
+    target makes the REMAINING shards re-balance around it instead of
+    starving."""
+    uniq = np.asarray(uniq_tokens, dtype=np.uint64)
+    w = np.asarray(weights, dtype=np.int64)
+    total = int(w.sum())
+    cum = np.cumsum(w)
+    bounds = np.empty(max(n_shards - 1, 0), dtype=np.uint64)
+    taken = 0          # distinct tokens already assigned
+    assigned = 0       # weight already assigned
+    for s in range(n_shards - 1):
+        ideal = (total - assigned) / (n_shards - s)
+        target = assigned + ideal
+        k = taken + int(np.searchsorted(cum[taken:], target, side="left"))
+        if k >= len(cum):
+            take = len(cum)
+        else:
+            below = (int(cum[k - 1]) if k > 0 else 0) - assigned
+            above = int(cum[k]) - assigned
+            # split by RELATIVE deviation from the ideal shard size: a
+            # hot token right after a small remainder must be absorbed
+            # (overshoot) rather than leave a starved sliver shard —
+            # absolute distance picks the sliver when the hot token is
+            # more than 2x the ideal
+
+            def dev(sz):
+                return max(sz / ideal, ideal / sz) if sz > 0 \
+                    else float("inf")
+
+            take = k + 1 if dev(above) <= dev(below) else k
+        if taken < len(cum):
+            take = max(take, taken + 1)   # a shard never goes empty
+            # while distinct tokens remain
+        take = min(take, len(cum))
+        bounds[s] = uniq[take - 1] if take > 0 else uniq[0]
+        assigned = int(cum[take - 1]) if take > 0 else 0
+        taken = take
+    return bounds
+
+
+def batch_tokens_u64(cat) -> np.ndarray:
+    """Biased uint64 tokens of every cell (lane0 << 32 | lane1)."""
+    with np.errstate(over="ignore"):
+        return (cat.lanes[:, 0].astype(np.uint64) << np.uint64(32)) \
+            | cat.lanes[:, 1].astype(np.uint64)
+
+
+def distinct_token_weights(cat) -> tuple[np.ndarray, np.ndarray]:
+    """(distinct tokens asc, distinct-IDENTITY cell count per token).
+    The planner's weight source for in-memory batches: duplicates of the
+    same identity collapse in the merge, so balancing on raw cell counts
+    leaves duplicate-heavy shards with a fraction of the target OUTPUT
+    size. One np.unique over the full identity lanes counts survivors
+    exactly (tombstone purging aside)."""
+    K = cat.n_lanes
+    tok = batch_tokens_u64(cat)
+    keys = np.ascontiguousarray(cat.lanes.astype(">u4")).view(
+        f"S{4 * K}").ravel()
+    _, first = np.unique(keys, return_index=True)
+    return np.unique(tok[first], return_counts=True)
+
+
+def boundaries_from_indexes(readers, n_shards: int) -> np.ndarray | None:
+    """Plan shard boundaries for a compaction round from the input
+    sstables' partition directories — no data decode needed. Each
+    reader's index yields (partition token, cell count) samples; counts
+    are combined across inputs by MAX per token: within one sstable
+    every identity is unique, so the max across inputs lower-bounds the
+    distinct (post-merge) cell count and is exact when the runs fully
+    overlap — the duplicate-heavy case the raw-sum weighting got wrong.
+    Returns None when the inputs expose no partitions."""
+    toks_all: list[np.ndarray] = []
+    w_all: list[np.ndarray] = []
+    for r in readers:
+        n_part = getattr(r, "n_partitions", 0)
+        if not n_part:
+            continue
+        tok = r.partition_tokens.astype(np.uint64) ^ _BIAS
+        counts = np.diff(np.append(r._part_cell0, r.n_cells))
+        toks_all.append(tok)
+        w_all.append(counts.astype(np.int64))
+    if not toks_all:
+        return None
+    tok = np.concatenate(toks_all)
+    w = np.concatenate(w_all)
+    order = np.argsort(tok, kind="stable")
+    tok, w = tok[order], w[order]
+    new = np.ones(len(tok), dtype=bool)
+    new[1:] = tok[1:] != tok[:-1]
+    grp = np.cumsum(new) - 1
+    wmax = np.zeros(int(grp[-1]) + 1 if len(grp) else 0, dtype=np.int64)
+    np.maximum.at(wmax, grp, w)
+    return plan_token_boundaries(tok[new], wmax, n_shards)
+
+
+def boundaries_to_ranges(bounds: np.ndarray,
+                         n_shards: int) -> list[tuple[int, int]]:
+    """Signed (lo, hi] token ranges per shard for SSTableReader
+    .scan_tokens / Memtable.scan_window: shard s covers tokens in
+    (bounds[s-1], bounds[s]], the first from int64 min, the last to
+    int64 max. Biased-u64 order equals signed order after the bias
+    XOR, so boundary membership is identical to searchsorted
+    side='left' over the biased bounds."""
+    signed = [int(np.int64(b ^ _BIAS)) for b in np.asarray(bounds,
+                                                           np.uint64)]
+    lo = -(1 << 63)
+    out = []
+    for s in range(n_shards):
+        hi = signed[s] if s < len(signed) else (1 << 63) - 1
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def shard_imbalance(sizes) -> float:
+    """max/mean shard-size factor (1.0 = perfectly balanced) — the skew
+    health metric the multichip sweep reports per case. Unsplittable hot
+    partitions lower-bound it at hot_cells / mean."""
+    sizes = list(sizes)
+    total = sum(sizes)
+    if not sizes or total == 0:
+        return 1.0
+    return max(sizes) / (total / len(sizes))
+
+
+# ------------------------------------------------------- mesh metrics --
+
+_LAST_IMBALANCE = [1.0]
+_GAUGES_REGISTERED = [False]
+
+
+def record_shard_metrics(shard_cells, device_walls_s=None) -> None:
+    """Fold one sharded round into the mesh.* metrics group: per-shard
+    cell counts and device wall seconds as histograms, the round's
+    max/mean imbalance as a gauge (Prometheus export picks all of them
+    up through the global registry)."""
+    from ..service.metrics import GLOBAL
+    if not _GAUGES_REGISTERED[0]:
+        GLOBAL.register_gauge("mesh.imbalance",
+                              lambda: _LAST_IMBALANCE[0])
+        _GAUGES_REGISTERED[0] = True
+    sizes = [int(c) for c in shard_cells if c]
+    GLOBAL.incr("mesh.rounds")
+    GLOBAL.incr("mesh.shards", len(sizes))
+    h = GLOBAL.hist("mesh.shard_cells")
+    for c in sizes:
+        h.update_us(c)
+    if device_walls_s:
+        hw = GLOBAL.hist("mesh.device_wall")
+        for w in device_walls_s:
+            if w > 0:
+                hw.update_us(w * 1e6)
+    _LAST_IMBALANCE[0] = shard_imbalance(sizes)

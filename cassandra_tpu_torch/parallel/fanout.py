@@ -1,0 +1,249 @@
+"""Process-global shard fan-out: the host-thread execution substrate of
+the mesh data plane.
+
+The mesh probe (parallel/mesh.py) established that per-shard work —
+device programs AND host merge engines (the native FFI and numpy both
+release the GIL in their hot paths) — overlaps only when each shard is
+DRIVEN FROM ITS OWN HOST THREAD. This module owns the knob and the
+read-side threads: `configure()` applies the hot-reloadable
+`compaction_mesh_devices` setting exactly like the compressor pool's
+(0 = off: every caller falls back to its serial path); batched mesh
+reads and sharded range scans (storage/table.py) run on the shared
+ShardFanout pool here, while mesh compaction (compaction/task.py)
+reads only the WIDTH via mesh_devices() and drives its own
+per-task lanes (a compaction shard can block on the throughput
+limiter — parking a shared read lane behind the compaction throttle
+would let one background task starve point-read batches).
+
+map_shards(fn, n) preserves SHARD ORDER in its results — token-range
+shard order is identity-lane order (the memtable invariant), so
+callers drain results 0..n-1 and get byte-identical output to their
+serial paths. Completion order is free to be adversarial; the
+`_TEST_SHARD_DELAY` hook lets tests force it.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from ..utils import lockwitness
+
+# test hook: {shard_index: seconds} delays applied before running the
+# shard's closure — forces adversarial completion orders
+_TEST_SHARD_DELAY: dict | None = None
+
+
+class ShardFanout:
+    """N hot-resizable worker threads executing per-shard closures.
+
+    Same thread-lifecycle shape as compress_pool.CompressorPool:
+    workers spawn lazily on first submit (a configured-but-unused
+    fanout costs nothing), surplus workers retire after their current
+    job when the target shrinks."""
+
+    POLL_SECONDS = 0.2
+
+    def __init__(self, workers: int = 1, name: str = "mesh-shard"):
+        self.name = name
+        self._q: queue.Queue = queue.Queue()
+        self._lock = lockwitness.make_lock("mesh.fanout")
+        self._threads: list[threading.Thread] = []
+        self._target = max(int(workers), 1)
+        self._shutdown = False
+        self.jobs_completed = 0
+
+    @property
+    def workers(self) -> int:
+        return self._target
+
+    def set_workers(self, n: int) -> None:
+        """Hot-resize; 0 idles the pool (every worker retires after its
+        current job — no poll wakeups while the knob is off)."""
+        with self._lock:
+            if self._shutdown:
+                return
+            self._target = max(int(n), 0)
+            if self._threads and self._target:
+                self._spawn_locked()
+        if self._target == 0:
+            self._drain_queue()
+
+    def _drain_queue(self) -> None:
+        """Discard queued pull closures. Safe at any time: a pull only
+        CLAIMS work from its map_shards call's claim queue, and the
+        calling thread steals every unclaimed shard itself before
+        waiting — so dropping queued pulls never strands a shard, it
+        only releases the results/closure references they pin (with 0
+        workers nobody would ever pop them)."""
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                return
+
+    def _spawn_locked(self) -> None:
+        while len(self._threads) < self._target:
+            t = threading.Thread(target=self._work_loop,
+                                 name=f"{self.name}-w", daemon=True)
+            self._threads.append(t)
+            t.start()
+
+    def queue_depth(self) -> int:
+        return self._q.qsize()
+
+    def _work_loop(self) -> None:
+        me = threading.current_thread()
+        while True:
+            with self._lock:
+                if self._shutdown or len(self._threads) > self._target:
+                    if me in self._threads:
+                        self._threads.remove(me)
+                    return
+            try:
+                job = self._q.get(timeout=self.POLL_SECONDS)
+            except queue.Empty:
+                continue
+            try:
+                job()
+            except BaseException:
+                # jobs own their error channel (map_shards collects per-
+                # shard exceptions); a raise here is a job bug, and one
+                # bad job must not retire a shared worker — the
+                # CompressorPool contract
+                pass
+            finally:
+                with self._lock:
+                    self.jobs_completed += 1
+
+    def map_shards(self, fn, n_shards: int) -> list:
+        """Run fn(s) for s in 0..n_shards-1 across the workers; returns
+        results IN SHARD ORDER. The caller's thread also works a share
+        (shard 0 plus whatever it can steal) so a 1-worker fanout still
+        overlaps caller-side draining with worker-side compute, and no
+        configuration deadlocks. Exceptions propagate (first one wins)
+        after every shard has settled."""
+        results: list = [None] * n_shards
+        errors: list[BaseException] = []
+        done = threading.Event()
+        remaining = [n_shards]
+        lock = threading.Lock()
+        claim_q: queue.Queue = queue.Queue()
+        for s in range(n_shards):
+            claim_q.put(s)
+
+        def run_one(s: int) -> None:
+            try:
+                delay = _TEST_SHARD_DELAY
+                if delay:
+                    import time
+                    time.sleep(delay.get(s, 0.0))
+                results[s] = fn(s)
+            except BaseException as e:
+                errors.append(e)
+            finally:
+                with lock:
+                    remaining[0] -= 1
+                    if remaining[0] == 0:
+                        done.set()
+
+        def pull() -> None:
+            try:
+                s = claim_q.get_nowait()
+            except queue.Empty:
+                return
+            run_one(s)
+
+        with self._lock:
+            if self._shutdown:
+                raise RuntimeError("shard fanout is shut down")
+            self._spawn_locked()
+        # hand every shard to the pool; the caller thread steals work
+        # until all shards are claimed, then waits for stragglers
+        for _ in range(n_shards):
+            self._q.put(pull)
+        while not claim_q.empty():
+            pull()
+        done.wait()
+        if errors:
+            raise errors[0]
+        return results
+
+    def shutdown(self, timeout: float = 5.0) -> None:
+        with self._lock:
+            self._shutdown = True
+            threads = list(self._threads)
+        for t in threads:
+            t.join(timeout=timeout)
+        self._drain_queue()
+
+
+# ---------------------------------------------------------- global state --
+
+_LOCK = lockwitness.make_lock("mesh.fanout_registry")
+_GLOBAL: ShardFanout | None = None
+_DEVICES = 0
+# per-owner width demands: the worker POOL is process-global (like the
+# compressor pool) but each engine routes through its OWN knob, so one
+# engine's compaction_mesh_devices=0 must not retire the lanes a
+# co-hosted engine is using. The pool is sized to the max demand.
+_DEMANDS: dict = {}
+
+
+def configure(n: int, owner=None) -> None:
+    """Apply the compaction_mesh_devices knob: 0 = mesh mode off
+    (serial data plane), N = shard every eligible bulk operation N
+    ways. Hot-reloadable; a live fanout resizes in place.
+
+    owner: the demanding engine (or None for the anonymous process
+    demand — scripts/tests). Each owner's latest value is its demand;
+    the pool runs at the MAX across owners, so co-hosted engines with
+    different knobs each get at least their width and an engine
+    setting 0 only removes its own demand."""
+    global _DEVICES, _GLOBAL
+    n = max(int(n), 0)
+    key = id(owner) if owner is not None else None
+    with _LOCK:
+        if n > 0:
+            _DEMANDS[key] = n
+        else:
+            _DEMANDS.pop(key, None)
+        eff = max(_DEMANDS.values(), default=0)
+        _DEVICES = eff
+        if eff > 0:
+            if _GLOBAL is None:
+                _GLOBAL = ShardFanout(eff)
+                _register_gauges(_GLOBAL)
+            else:
+                _GLOBAL.set_workers(eff)
+        elif _GLOBAL is not None:
+            # every demand gone: retire the worker threads (they'd
+            # otherwise poll the queue forever with no way to receive
+            # work)
+            _GLOBAL.set_workers(0)
+
+
+def mesh_devices() -> int:
+    """The effective mesh width (max demand across owners; 0 = off)."""
+    return _DEVICES
+
+
+def reset() -> None:
+    """Drop every demand and idle the pool (test isolation)."""
+    with _LOCK:
+        _DEMANDS.clear()
+    configure(0)
+
+
+def get_fanout() -> ShardFanout | None:
+    """The shared fanout, or None while mesh mode is off."""
+    with _LOCK:
+        return _GLOBAL if _DEVICES > 0 else None
+
+
+def _register_gauges(f: ShardFanout) -> None:
+    from ..service.metrics import GLOBAL
+
+    GLOBAL.register_gauge("mesh.workers", lambda: float(f.workers))
+    GLOBAL.register_gauge("mesh.queue_depth",
+                          lambda: float(f.queue_depth()))
+    GLOBAL.register_gauge("mesh.jobs_completed",
+                          lambda: float(f.jobs_completed))

@@ -1,0 +1,670 @@
+"""SSTable reader: ctpu components -> CellBatches.
+
+Reference counterpart: io/sstable/format/SSTableReader.java:152 (per-table
+reader with bloom/index/stats), BigTableScanner (compaction scanner),
+io/util/CompressedChunkReader.java:35 (chunk decompress on read).
+
+Point reads: bloom check -> binary search in the partition directory ->
+decode only the segments covering the partition's cell range. Compaction
+scans: sequential segment decode yielding device-ready CellBatches.
+"""
+from __future__ import annotations
+
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+
+from ...ops.codec import CompressionParams
+from ...utils import bloom as bloom_mod
+from ...utils import faultfs
+from ..cellbatch import CellBatch
+from .format import Component, Descriptor
+
+_BIAS = 1 << 63
+
+
+class CorruptSSTableError(Exception):
+    """Data on disk is wrong (CRC/length/directory mismatch), not just
+    unreachable. Carries the owning descriptor so the quarantine path
+    can identify WHICH sstable failed inside a multi-input operation
+    (compaction, batched read)."""
+
+    def __init__(self, msg: str = "", descriptor: Descriptor | None = None):
+        super().__init__(msg)
+        self.descriptor = descriptor
+
+
+class SSTableReader:
+    def __init__(self, descriptor: Descriptor, table=None):
+        # table is optional: offline tools read without schema, but range
+        # tombstone reconciliation needs table.clustering_comp — batches
+        # decoded here carry it as ck_comp when the table is known
+        self._table = table
+        self.desc = descriptor
+        try:
+            self._open(descriptor)
+        except (CorruptSSTableError, OSError):
+            raise
+        except Exception as e:
+            # a malformed component (truncated stats JSON, garbage index
+            # bytes landing as struct/numpy/key errors) is CORRUPTION,
+            # not a programming error — type it so the failure policy
+            # layer can quarantine instead of crashing store open
+            from .. import encryption as enc_mod
+            if isinstance(e, enc_mod.EncryptionError):
+                raise   # missing keys are a config problem, not rot
+            raise CorruptSSTableError(
+                f"{descriptor}: unreadable component "
+                f"({type(e).__name__}: {e})", descriptor=descriptor) from e
+
+    def _read_component(self, comp: str) -> bytes:
+        """Component bytes through the sstable.open fault checkpoint."""
+        path = self.desc.path(comp)
+        if faultfs.GLOBAL.active:
+            faultfs.GLOBAL.check("sstable.open", path)
+            with open(path, "rb") as f:
+                return faultfs.GLOBAL.on_read("sstable.open", path,
+                                              f.read())
+        with open(path, "rb") as f:
+            return f.read()
+
+    def _open(self, descriptor: Descriptor) -> None:
+        # "cc"+ stores the LANES block byte-plane shuffled (format.py)
+        self._shuffled_lanes = descriptor.version >= "cc"
+        self.stats = json.loads(self._read_component(Component.STATS))
+        self.K = int(self.stats["n_lanes"])
+        self.n_cells = int(self.stats["n_cells"])
+        self.params = CompressionParams.from_dict(self.stats["compression"])
+        self.compressor = self.params.compressor_or_noop()
+
+        # TDE: encrypted sstables carry an Encryption.db envelope (key
+        # id + per-component nonces); reads XOR the ciphertext back at
+        # its file offset (storage/encryption.py)
+        self._enc = None
+        enc_path = descriptor.path(Component.ENCRYPTION)
+        if os.path.exists(enc_path):
+            from .. import encryption as enc_mod
+            ctx = enc_mod.get_context()
+            if ctx is None:
+                raise enc_mod.EncryptionError(
+                    f"{descriptor} is encrypted but no EncryptionContext "
+                    f"is installed")
+            with open(enc_path) as f:
+                env = json.load(f)
+            self._enc = (ctx, int(env["key_id"]),
+                         {c: bytes.fromhex(n)
+                          for c, n in env["nonces"].items()})
+
+        # index: fixed-width entries
+        raw = self._decrypt_component(Component.INDEX,
+                                      self._read_component(Component.INDEX))
+        n_seg, k, seg_cells = struct.unpack_from("<III", raw, 0)
+        if k != self.K:
+            raise CorruptSSTableError("index/stats lane mismatch",
+                                      descriptor=descriptor)
+        self.segment_cells = seg_cells
+        entry_sz = 12 + 3 * 20 + 2 * 4 * self.K
+        self.n_segments = n_seg
+        self._seg_off = np.zeros(n_seg, dtype=np.int64)
+        self._seg_n = np.zeros(n_seg, dtype=np.int32)
+        self._blk = np.zeros((n_seg, 3, 3), dtype=np.int64)  # clen,ulen,crc
+        self._seg_first = np.zeros((n_seg, self.K), dtype=np.uint32)
+        self._seg_last = np.zeros((n_seg, self.K), dtype=np.uint32)
+        pos = 12
+        for i in range(n_seg):
+            off, n = struct.unpack_from("<QI", raw, pos)
+            self._seg_off[i] = off
+            self._seg_n[i] = n
+            p = pos + 12
+            for b in range(3):
+                cl, ul, crc = struct.unpack_from("<QQI", raw, p)
+                self._blk[i, b] = (cl, ul, crc)
+                p += 20
+            self._seg_first[i] = np.frombuffer(raw, dtype="<u4",
+                                               count=self.K, offset=p)
+            self._seg_last[i] = np.frombuffer(raw, dtype="<u4", count=self.K,
+                                              offset=p + 4 * self.K)
+            pos += entry_sz
+        # global first-cell index of each segment
+        self._seg_cell0 = np.zeros(n_seg + 1, dtype=np.int64)
+        np.cumsum(self._seg_n, out=self._seg_cell0[1:])
+
+        # partition directory
+        praw = self._decrypt_component(
+            Component.PARTITIONS, self._read_component(Component.PARTITIONS))
+        (n_part,) = struct.unpack_from("<I", praw, 0)
+        self.n_partitions = n_part
+        o = 4
+        self._part_lane4 = np.frombuffer(
+            praw, dtype=">u4", count=n_part * 4, offset=o).reshape(n_part, 4)
+        o += n_part * 16
+        self._part_cell0 = np.frombuffer(praw, dtype="<i8", count=n_part,
+                                         offset=o)
+        o += n_part * 8
+        pk_off = np.frombuffer(praw, dtype="<i8", count=n_part + 1, offset=o)
+        o += (n_part + 1) * 8
+        self._pk_blob = praw[o:]
+        self._pk_off = pk_off
+
+        self.bloom = bloom_mod.BloomFilter.deserialize(
+            self._read_component(Component.FILTER))
+
+        if faultfs.GLOBAL.active:
+            faultfs.GLOBAL.check("sstable.open",
+                                 descriptor.path(Component.DATA))
+        self._data = open(descriptor.path(Component.DATA), "rb")
+        self.data_size = os.fstat(self._data.fileno()).st_size
+        self.size_bytes = sum(
+            os.path.getsize(p) for p in descriptor.all_paths()
+            if os.path.exists(p))
+
+    # ------------------------------------------------------------ metadata
+
+    @property
+    def min_ts(self):
+        return self.stats["min_ts"]
+
+    @property
+    def max_ts(self):
+        return self.stats["max_ts"]
+
+    @property
+    def max_ldt(self):
+        return self.stats.get("max_ldt")
+
+    @property
+    def level(self) -> int:
+        return int(self.stats.get("level", 0))
+
+    @property
+    def n_tombstones(self) -> int:
+        return int(self.stats.get("tombstones", 0))
+
+    @property
+    def repaired_at(self) -> int:
+        """repairedAt millis; 0 = unrepaired (StatsMetadata.repairedAt)."""
+        return int(self.stats.get("repaired_at", 0))
+
+    @property
+    def is_repaired(self) -> bool:
+        return self.repaired_at > 0
+
+    def partition_key_at(self, i: int) -> bytes:
+        return self._pk_blob[self._pk_off[i]:self._pk_off[i + 1]]
+
+    def partition_keys(self):
+        for i in range(self.n_partitions):
+            yield self.partition_key_at(i)
+
+    def min_token(self) -> int:
+        if self.n_partitions == 0:
+            return 0
+        l = self._part_lane4[0]
+        return ((int(l[0]) << 32) | int(l[1])) - _BIAS
+
+    def max_token(self) -> int:
+        if self.n_partitions == 0:
+            return 0
+        l = self._part_lane4[-1]
+        return ((int(l[0]) << 32) | int(l[1])) - _BIAS
+
+    def release(self):
+        """Mark no longer live. The fd stays open so in-flight reads that
+        still hold this reader finish safely; it closes when the object is
+        collected (reference: ref-counted SSTableReader,
+        utils/concurrent/Ref). Use close() only when no reads can exist."""
+        self.released = True
+
+    released = False
+
+    def close(self):
+        if not self._data.closed:
+            self._data.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _decrypt_component(self, comp: str, raw: bytes) -> bytes:
+        if self._enc is None:
+            return raw
+        ctx, kid, nonces = self._enc
+        if comp not in nonces:
+            return raw
+        return ctx.xor_at(kid, nonces[comp], 0, raw)
+
+    # ------------------------------------------------------------- decode
+
+    def _read_segment(self, i: int) -> CellBatch:
+        from ..chunk_cache import GLOBAL as chunk_cache
+        key = (self.desc.directory, self.desc.generation, i)
+        cached = chunk_cache.get(key)
+        if cached is not None:
+            if cached.ck_comp is None and self._table is not None:
+                # a schema-less (offline-tool) reader may have warmed
+                # this entry; range-tombstone reconciliation needs the
+                # composite translator back. Fix up a SHALLOW COPY (the
+                # arrays stay shared — they are immutable by the cache
+                # contract): the cached object is read concurrently by
+                # other threads and an in-place attribute store here
+                # would race their merge passes
+                import copy
+                fixed = copy.copy(cached)
+                fixed.ck_comp = self._table.clustering_comp
+                # swap the repaired copy in (atomic reference replace)
+                # so later hits skip both the None-check and the copy
+                chunk_cache.put(key, fixed)
+                return fixed
+            return cached
+        batch = self._decode_segment(i)
+        chunk_cache.put(key, batch)
+        return batch
+
+    def _decode_segment(self, i: int) -> CellBatch:
+        n = int(self._seg_n[i])
+        pos = int(self._seg_off[i])
+        cls = [int(self._blk[i, b, 0]) for b in range(3)]
+        uls = [int(self._blk[i, b, 1]) for b in range(3)]
+        crcs = [int(self._blk[i, b, 2]) for b in range(3)]
+        # ONE scatter-preadv for all three blocks (adjacent on disk):
+        # raw-stored blocks land DIRECTLY in the arrays the CellBatch will
+        # own; compressed blocks land in scratch and are decompressed into
+        # place — no staging bytes object, no memcpy for raw blocks.
+        # Positional read: readers share this handle across threads
+        # (reference: FileHandle/RandomAccessReader are per-thread; pread
+        # avoids the seek/read race entirely).
+        meta = np.empty(uls[0], dtype=np.uint8)
+        lanes = np.empty((n, self.K), dtype=np.uint32)
+        payload = np.empty(uls[2], dtype=np.uint8)
+        if uls[1] != 4 * n * self.K:
+            # the native unshuffle (and the row view) trust this length;
+            # never let a corrupt/crafted index walk past the allocation
+            raise CorruptSSTableError(
+                f"{self.desc}: segment {i} lanes length {uls[1]} != "
+                f"{4 * n * self.K}", descriptor=self.desc)
+        if self._shuffled_lanes:
+            # stored lanes are byte planes; decode lands in scratch and
+            # is unshuffled into the row-major array afterwards
+            lanes_store: np.ndarray = np.empty(uls[1], dtype=np.uint8)
+        else:
+            lanes_store = lanes
+        dsts = [meta, lanes_store, payload]
+        iovs = []
+        compressed: list[tuple[int, np.ndarray]] = []
+        for b in range(3):
+            if not self.params.enabled or cls[b] == uls[b]:
+                iovs.append(dsts[b].reshape(-1).view(np.uint8))
+            else:
+                scratch = np.empty(cls[b], dtype=np.uint8)
+                compressed.append((b, scratch))
+                iovs.append(scratch)
+        if hasattr(os, "preadv"):
+            got = os.preadv(self._data.fileno(), iovs, pos)
+        else:   # platforms without preadv: one read + scatter copy
+            raw = os.pread(self._data.fileno(), sum(cls), pos)
+            got = len(raw)
+            if got == sum(cls):
+                src = np.frombuffer(raw, dtype=np.uint8)
+                o = 0
+                for v in iovs:
+                    v[:] = src[o:o + v.nbytes]
+                    o += v.nbytes
+        if faultfs.GLOBAL.active:
+            # the sstable.read fault checkpoint: lands EXACTLY where a
+            # bad device would — after the pread, before integrity
+            # checks (so a flipped bit must be CAUGHT by the CRCs)
+            got = faultfs.GLOBAL.on_pread(
+                "sstable.read", self.desc.path(Component.DATA), iovs, got)
+        if got != sum(cls):
+            raise CorruptSSTableError(
+                f"{self.desc}: segment {i} short read ({got}/{sum(cls)})",
+                descriptor=self.desc)
+        for b in range(3):
+            if zlib.crc32(iovs[b]) != crcs[b]:
+                raise CorruptSSTableError(
+                    f"{self.desc}: segment {i} block {b} CRC mismatch",
+                    descriptor=self.desc)
+        if self._enc is not None:
+            # CRCs cover the ciphertext; decrypt each block in place at
+            # its file offset before decompression
+            ctx, kid, nonces = self._enc
+            off = pos
+            for b in range(3):
+                plain = ctx.xor_at(kid, nonces[Component.DATA], off,
+                                   iovs[b])
+                iovs[b][:] = np.frombuffer(plain, dtype=np.uint8)
+                off += cls[b]
+        for b, scratch in compressed:
+            self.compressor.decompress_iov(scratch, [0], [cls[b]],
+                                           [dsts[b]])
+        if self._shuffled_lanes:
+            from ...ops.codec import lanes_unshuffle
+            lanes_unshuffle(lanes_store, lanes)
+
+        ts = meta[:8 * n].view("<i8")
+        if self.desc.version >= "ce":
+            # "ce" stores the ts lane as per-segment wraparound deltas
+            # (format.py): one cumsum rebuilds the absolute stamps —
+            # exact for any i64 values because both directions run in
+            # mod-2^64 arithmetic
+            ts = np.cumsum(ts, dtype=np.int64)
+        o = 8 * n
+        ldt = meta[o:o + 4 * n].view("<i4")
+        o += 4 * n
+        ttl = meta[o:o + 4 * n].view("<i4")
+        o += 4 * n
+        flags = meta[o:o + n]
+        o += n
+        if self.desc.version >= "cd":
+            # delta layout: u32 frame lengths + u32 value offsets —
+            # rebuild the absolute i64 offsets with one cumsum. Same
+            # anti-corruption stance as the lanes-length check above:
+            # a crafted/corrupt meta length must fail as corruption,
+            # not as a numpy shape error
+            if uls[0] != 25 * n:
+                raise CorruptSSTableError(
+                    f"{self.desc}: segment {i} meta length {uls[0]} "
+                    f"!= {25 * n}", descriptor=self.desc)
+            frame_len = meta[o:o + 4 * n].view("<u4")
+            o += 4 * n
+            val_rel = meta[o:o + 4 * n].view("<u4")
+            off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(frame_len, out=off[1:])
+            val_start = off[:-1] + val_rel
+        else:
+            off = meta[o:o + 8 * (n + 1)].view("<i8")
+            o += 8 * (n + 1)
+            val_start = meta[o:o + 8 * n].view("<i8")
+
+        batch = CellBatch(lanes, ts.view(np.int64), ldt.view(np.int32),
+                          ttl.view(np.int32), flags, off.view(np.int64),
+                          val_start.view(np.int64), payload, {},
+                          sorted=True)
+        batch.ck_fits_prefix = bool(self.stats.get("ck_fits_prefix", False))
+        if self._table is not None:
+            batch.ck_comp = self._table.clustering_comp
+        self._fill_pk_map(batch, i)
+        return batch
+
+    def _fill_pk_map(self, batch: CellBatch, seg_i: int) -> None:
+        """Attach pk bytes for every partition overlapping this segment."""
+        lo_cell = int(self._seg_cell0[seg_i])
+        hi_cell = int(self._seg_cell0[seg_i + 1])
+        lo = int(np.searchsorted(self._part_cell0, lo_cell, side="right")) - 1
+        hi = int(np.searchsorted(self._part_cell0, hi_cell, side="left"))
+        for p in range(max(lo, 0), hi):
+            key16 = self._part_lane4[p].astype(">u4").tobytes()
+            batch.pk_map[key16] = self.partition_key_at(p)
+
+    # ------------------------------------------------------------- reads --
+
+    def might_contain(self, pk: bytes) -> bool:
+        return self.bloom.might_contain(pk)
+
+    def _key_cache_key(self, pk: bytes) -> tuple:
+        return (self.desc.directory, self.desc.generation, pk)
+
+    def _verified_key_cache_hit(self, key_cache, ck: tuple,
+                                pk: bytes) -> int | None:
+        """Key-cache hit with the same pk verification the search path
+        does: a (directory, generation) pair can be REUSED after a
+        truncate recreates the store, and a stale index must fall back
+        to the search, never silently serve another partition."""
+        hit = key_cache.get(ck)
+        if hit is None:
+            return None
+        p = hit[0]
+        if p < self.n_partitions and self.partition_key_at(p) == pk:
+            return p
+        return None
+
+    @property
+    def _dir_keys(self) -> tuple[np.ndarray, np.ndarray]:
+        """(hi64, lo64) packing of the partition directory's four lanes
+        — lexicographic order over the lanes equals unsigned order over
+        the pair, so batched lookups are two np.searchsorted calls
+        (cached on first use)."""
+        if not hasattr(self, "_dir_keys_cached"):
+            l4 = self._part_lane4.astype(np.uint64)
+            self._dir_keys_cached = (
+                (l4[:, 0] << np.uint64(32)) | l4[:, 1],
+                (l4[:, 2] << np.uint64(32)) | l4[:, 3])
+        return self._dir_keys_cached
+
+    def _partition_index(self, pk: bytes) -> int | None:
+        """Directory position of pk, through the shared key cache
+        (cache/KeyCacheKey role: a hit skips the directory search;
+        entries are generation-scoped so stale ones can never serve a
+        new sstable)."""
+        from ..key_cache import GLOBAL as key_cache
+        ck = self._key_cache_key(pk)
+        hit = self._verified_key_cache_hit(key_cache, ck, pk)
+        if hit is not None:
+            return hit
+        from ..cellbatch import pk_lanes
+        target = pk_lanes(pk)
+        # binary search over big-endian-stored directory
+        view = self._part_lane4.astype(np.uint32)
+        lo, hi = 0, self.n_partitions
+        while lo < hi:
+            mid = (lo + hi) // 2
+            row = tuple(int(x) for x in view[mid])
+            if row < target:
+                lo = mid + 1
+            else:
+                hi = mid
+        if lo < self.n_partitions and tuple(int(x) for x in view[lo]) == target:
+            if self.partition_key_at(lo) != pk:
+                raise CorruptSSTableError("partition key hash collision",
+                                          descriptor=self.desc)
+            key_cache.put(ck, (lo,))
+            return lo
+        return None
+
+    def warm_key(self, pk: bytes) -> bool:
+        """Re-populate the key cache for pk through the normal lookup
+        path (AutoSavingCache warm leg). True when the key exists."""
+        if not self.might_contain(pk):
+            return False
+        return self._partition_index(pk) is not None
+
+    def _partition_cell_range(self, p: int) -> tuple[int, int]:
+        c0 = int(self._part_cell0[p])
+        c1 = int(self._part_cell0[p + 1]) if p + 1 < self.n_partitions \
+            else self.n_cells
+        return c0, c1
+
+    def read_partition(self, pk: bytes) -> CellBatch | None:
+        """All cells of one partition (None if absent)."""
+        if not self.might_contain(pk):
+            return None
+        p = self._partition_index(pk)
+        if p is None:
+            return None
+        c0, c1 = self._partition_cell_range(p)
+        return self._cell_range(c0, c1)
+
+    def _partition_indexes_batch(self, pks: list[bytes]) -> list[int | None]:
+        """Vectorized directory lookup for many keys: all (token, pkh)
+        targets bracket against the directory with two searchsorted
+        passes instead of a per-key Python binary search."""
+        from ..cellbatch import pk_lanes
+        targets = np.array([pk_lanes(pk) for pk in pks], dtype=np.uint64)
+        t_hi = (targets[:, 0] << np.uint64(32)) | targets[:, 1]
+        t_lo = (targets[:, 2] << np.uint64(32)) | targets[:, 3]
+        dir_hi, dir_lo = self._dir_keys
+        left = np.searchsorted(dir_hi, t_hi, side="left")
+        right = np.searchsorted(dir_hi, t_hi, side="right")
+        out: list[int | None] = []
+        for i, pk in enumerate(pks):
+            lo, hi = int(left[i]), int(right[i])
+            if lo >= hi:
+                out.append(None)
+                continue
+            # token collisions are rare: the hi64 run is almost always
+            # one entry; resolve the pk-hash lanes within it
+            j = lo + int(np.searchsorted(dir_lo[lo:hi], t_lo[i],
+                                         side="left"))
+            if j < hi and int(dir_lo[j]) == int(t_lo[i]):
+                if self.partition_key_at(j) != pk:
+                    raise CorruptSSTableError(
+                        "partition key hash collision",
+                        descriptor=self.desc)
+                out.append(j)
+            else:
+                out.append(None)
+        return out
+
+    def read_partitions_batch(self, pks: list[bytes]
+                              ) -> tuple[dict, list[bytes]]:
+        """Many partitions in one pass (the multi-partition read fast
+        lane): ONE batched bloom probe, key-cache hits then one
+        vectorized directory search for the misses, and each covering
+        segment decoded ONCE for every partition it holds — instead of
+        len(pks) independent read_partition walks. Returns
+        (pk -> CellBatch for present keys, bloom-passing pks). Content
+        is bit-identical to per-key read_partition calls."""
+        out: dict[bytes, CellBatch] = {}
+        if not pks:
+            return out, []
+        mask = self.bloom.might_contain_batch(list(pks))
+        cands = [pk for pk, m in zip(pks, mask) if m]
+        if not cands:
+            return out, cands
+        from ..key_cache import GLOBAL as key_cache
+        ranges: dict[bytes, tuple[int, int]] = {}
+        miss: list[bytes] = []
+        for pk in cands:
+            hit = self._verified_key_cache_hit(
+                key_cache, self._key_cache_key(pk), pk)
+            if hit is not None:
+                ranges[pk] = self._partition_cell_range(hit)
+            else:
+                miss.append(pk)
+        if miss:
+            for pk, p in zip(miss, self._partition_indexes_batch(miss)):
+                if p is not None:
+                    key_cache.put(self._key_cache_key(pk), (p,))
+                    ranges[pk] = self._partition_cell_range(p)
+        # gather: decode each needed segment once (ascending disk
+        # order), slice every partition's cells out of the shared batch
+        seg_memo: dict[int, CellBatch] = {}
+        for pk, (c0, c1) in sorted(ranges.items(), key=lambda kv: kv[1]):
+            s0 = int(np.searchsorted(self._seg_cell0, c0, side="right")) - 1
+            s1 = int(np.searchsorted(self._seg_cell0, c1, side="left"))
+            parts = []
+            for s in range(s0, max(s1, s0 + 1)):
+                seg = seg_memo.get(s)
+                if seg is None:
+                    seg = seg_memo[s] = self._read_segment(s)
+                lo = max(c0 - int(self._seg_cell0[s]), 0)
+                hi = min(c1 - int(self._seg_cell0[s]), len(seg))
+                if lo > 0 or hi < len(seg):
+                    parts.append(seg.slice_range(lo, hi))
+                else:
+                    parts.append(seg)
+            batch = CellBatch.concat(parts) if len(parts) > 1 else parts[0]
+            batch.sorted = True
+            out[pk] = batch
+        return out, cands
+
+    def _cell_range(self, c0: int, c1: int) -> CellBatch:
+        s0 = int(np.searchsorted(self._seg_cell0, c0, side="right")) - 1
+        s1 = int(np.searchsorted(self._seg_cell0, c1, side="left"))
+        parts = []
+        for s in range(s0, max(s1, s0 + 1)):
+            seg = self._read_segment(s)
+            lo = max(c0 - int(self._seg_cell0[s]), 0)
+            hi = min(c1 - int(self._seg_cell0[s]), len(seg))
+            if lo > 0 or hi < len(seg):
+                parts.append(seg.slice_range(lo, hi))
+            else:
+                parts.append(seg)
+        out = CellBatch.concat(parts) if len(parts) > 1 else parts[0]
+        out.sorted = True
+        return out
+
+    def scanner(self):
+        """Sequential segment iterator for compaction/streaming
+        (BigTableScanner role). Yields sorted CellBatches."""
+        try:    # prime kernel readahead for the linear walk
+            os.posix_fadvise(self._data.fileno(), 0, 0,
+                             os.POSIX_FADV_SEQUENTIAL)
+        except (OSError, AttributeError):
+            pass
+        for i in range(self.n_segments):
+            yield self._read_segment(i)
+
+    @property
+    def partition_tokens(self) -> np.ndarray:
+        """int64 tokens of the partition directory, ascending (cached)."""
+        if not hasattr(self, "_part_tok"):
+            l4 = self._part_lane4.astype(np.uint64)
+            with np.errstate(over="ignore"):
+                self._part_tok = (((l4[:, 0] << np.uint64(32)) | l4[:, 1])
+                                  ^ np.uint64(_BIAS)).astype(np.int64)
+        return self._part_tok
+
+    def segment_range_for_tokens(self, lo: int, hi: int
+                                 ) -> tuple[int, int] | None:
+        """[s0, s1) segment indexes covering partitions with token in
+        (lo, hi], or None when the window misses this sstable — the
+        analytical scan's unit of zone-map pruning: it decides per
+        SEGMENT what to decode, where scan_tokens decodes the whole
+        covering range."""
+        toks = self.partition_tokens
+        side0 = "left" if lo == -(1 << 63) else "right"
+        i0 = int(np.searchsorted(toks, lo, side=side0))
+        i1 = int(np.searchsorted(toks, hi, side="right"))
+        if i0 >= i1:
+            return None
+        c0 = int(self._part_cell0[i0])
+        c1 = int(self._part_cell0[i1]) if i1 < self.n_partitions \
+            else self.n_cells
+        s0 = int(np.searchsorted(self._seg_cell0, c0, side="right")) - 1
+        s1 = int(np.searchsorted(self._seg_cell0, c1, side="left"))
+        return s0, max(s1, s0 + 1)
+
+    def scan_tokens(self, lo: int, hi: int) -> CellBatch | None:
+        """Cells of partitions with token in (lo, hi] — the bounded range
+        read primitive (paging windows / vnode-range scans). Decodes only
+        the covering segments."""
+        toks = self.partition_tokens
+        # lo == int64 min means "from the absolute start, inclusive" —
+        # there is no token below it to exclude
+        side0 = "left" if lo == -(1 << 63) else "right"
+        i0 = int(np.searchsorted(toks, lo, side=side0))
+        i1 = int(np.searchsorted(toks, hi, side="right"))
+        if i0 >= i1:
+            return None
+        c0 = int(self._part_cell0[i0])
+        c1 = int(self._part_cell0[i1]) if i1 < self.n_partitions \
+            else self.n_cells
+        return self._cell_range(c0, c1)
+
+    def verify_digest(self) -> bool:
+        """Recompute every block's CRC from the data file and fold them
+        into the file digest (digest = crc32 over the stream of per-block
+        crc32 words — every data byte is covered by exactly one block CRC,
+        and the writer computes it without a second full-file pass)."""
+        with open(self.desc.path(Component.DIGEST)) as f:
+            expected = int(f.read().strip())
+        crc = 0
+        for i in range(self.n_segments):
+            pos = int(self._seg_off[i])
+            for b in range(3):
+                cl = int(self._blk[i, b, 0])
+                data = os.pread(self._data.fileno(), cl, pos)
+                if len(data) != cl:
+                    return False
+                bcrc = zlib.crc32(data)
+                if bcrc != int(self._blk[i, b, 2]):
+                    return False
+                crc = zlib.crc32(struct.pack("<I", bcrc), crc)
+                pos += cl
+        return (crc & 0xFFFFFFFF) == expected

@@ -1,0 +1,1413 @@
+"""ColumnFamilyStore equivalent: per-table store owning the memtable, the
+live SSTable set, and the flush machinery.
+
+Reference counterpart: db/ColumnFamilyStore.java (switchMemtable:1038,
+inner Flush:1180, forceFlush:1089), db/lifecycle/Tracker.java:85 (the
+atomic view of live memtables+sstables).
+"""
+from __future__ import annotations
+
+import os
+import threading
+from ..utils import lockwitness
+import time
+
+import numpy as np
+
+from ..schema import TableMetadata
+from ..utils import timeutil
+from .cellbatch import (FLAG_PARTITION_DEL, CellBatch, merge_sorted,
+                        truncate_live_rows)
+from .commitlog import write_fastpath_enabled
+from .failures import (FailureHandler, list_quarantined,
+                       quarantine_descriptor_files)
+from .memtable import Memtable
+from .mutation import Mutation
+from .row_cache import RowCache
+from .sstable import Descriptor, SSTableReader, SSTableWriter
+from .sstable.reader import CorruptSSTableError
+
+
+def read_fastpath_enabled() -> bool:
+    """CTPU_READ_FASTPATH=0 disables timestamp-skip collation and batched
+    partition reads for A/B runs (bench.py read section,
+    scripts/check_readpath_ab.py). Read per call so a toggle mid-process
+    takes effect immediately."""
+    return os.environ.get("CTPU_READ_FASTPATH", "1") != "0"
+
+
+def _partition_deletion_ts(batch: CellBatch) -> int | None:
+    """Timestamp of the newest partition-scope deletion in a source's
+    view of one partition (None when it has none) — the accumulator the
+    timestamp-skip rule compares remaining sstables against."""
+    mask = (batch.flags & FLAG_PARTITION_DEL) != 0
+    if not mask.any():
+        return None
+    return int(batch.ts[mask].max())
+
+
+class WriteBarrier:
+    """The OpOrder role (utils/concurrent/OpOrder.java, used by the
+    reference's Flush at db/ColumnFamilyStore.java:1180-1240): writers
+    enter in SHARED mode — concurrently; the commitlog segment lock and
+    the memtable shard locks provide the fine-grained exclusion — while
+    the memtable switch enters EXCLUSIVE, so every write lands atomically
+    on one side of the flush point. Exclusive-preferring: a pending
+    switch blocks new shared entries, so flush cannot starve. NOT
+    reentrant in either mode."""
+
+    __slots__ = ("_cond", "_shared", "_excl", "_excl_waiting")
+
+    def __init__(self):
+        self._cond = lockwitness.make_condition("table.write_barrier")
+        self._shared = 0
+        self._excl = False
+        self._excl_waiting = 0
+
+    def shared(self):
+        return _SharedEntry(self)
+
+    def exclusive(self):
+        return _ExclusiveEntry(self)
+
+
+class _SharedEntry:
+    __slots__ = ("_b",)
+
+    def __init__(self, b):
+        self._b = b
+
+    def __enter__(self):
+        b = self._b
+        with b._cond:
+            while b._excl or b._excl_waiting:
+                b._cond.wait()
+            b._shared += 1
+        return self
+
+    def __exit__(self, *exc):
+        b = self._b
+        with b._cond:
+            b._shared -= 1
+            if b._shared == 0:
+                b._cond.notify_all()
+
+
+class _ExclusiveEntry:
+    __slots__ = ("_b",)
+
+    def __init__(self, b):
+        self._b = b
+
+    def __enter__(self):
+        b = self._b
+        with b._cond:
+            b._excl_waiting += 1
+            try:
+                while b._excl or b._shared:
+                    b._cond.wait()
+            finally:
+                b._excl_waiting -= 1
+            b._excl = True
+        return self
+
+    def __exit__(self, *exc):
+        b = self._b
+        with b._cond:
+            b._excl = False
+            b._cond.notify_all()
+
+
+class Tracker:
+    """Atomic view of the live data sources (db/lifecycle/Tracker.java:85).
+    Mutated under a lock; readers grab a consistent snapshot list."""
+
+    def __init__(self):
+        self._lock = lockwitness.make_rlock("table.tracker")
+        self.sstables: list[SSTableReader] = []
+        self._by_max_ts: list[SSTableReader] | None = None
+
+    def view(self) -> list[SSTableReader]:
+        with self._lock:
+            return list(self.sstables)
+
+    def view_by_max_ts(self) -> list[SSTableReader]:
+        """max_ts-DESCENDING snapshot for the read fast lane, memoized —
+        the ordering only changes when the sstable set does, and the
+        per-read sort was measurable on the path being optimized."""
+        with self._lock:
+            if self._by_max_ts is None:
+                self._by_max_ts = sorted(self.sstables,
+                                         key=lambda r: r.max_ts,
+                                         reverse=True)
+            return list(self._by_max_ts)
+
+    def add(self, reader: SSTableReader) -> None:
+        with self._lock:
+            self.sstables.append(reader)
+            self.sstables.sort(key=lambda r: r.desc.generation)
+            self._by_max_ts = None
+
+    def replace(self, removed: list[SSTableReader],
+                added: list[SSTableReader]) -> None:
+        with self._lock:
+            keep = [s for s in self.sstables if s not in removed]
+            self.sstables = sorted(keep + added,
+                                   key=lambda r: r.desc.generation)
+            self._by_max_ts = None
+
+
+class ColumnFamilyStore:
+    DEFAULT_FLUSH_THRESHOLD = 64 * 1024 * 1024  # bytes of live memtable data
+
+    def __init__(self, table: TableMetadata, data_dir: str,
+                 commitlog=None, flush_threshold: int | None = None,
+                 memtable_shards: int | None = None,
+                 failures: FailureHandler | None = None):
+        self.table = table
+        # disk/commit failure policy decisions (FSErrorHandler role);
+        # engine-scoped when opened by a StorageEngine, a private
+        # best_effort/ignore default for standalone stores
+        self.failures = failures or FailureHandler()
+        self.memtable_shards = memtable_shards
+        self.directory = os.path.join(
+            data_dir, table.keyspace,
+            f"{table.name}-{table.id.hex[:8]}")
+        os.makedirs(self.directory, exist_ok=True)
+        self.commitlog = commitlog
+        self.flush_threshold = flush_threshold or self.DEFAULT_FLUSH_THRESHOLD
+        self.tracker = Tracker()
+        self.memtable = Memtable(table, shards=memtable_shards)
+        self._flush_lock = lockwitness.make_lock("table.flush")
+        # write barrier (OpOrder role): writers shared, switch exclusive
+        self._barrier = WriteBarrier()
+        # per-table counters (the metrics vtable merges these with the
+        # hist groups below). The byte counters are the amplification
+        # accounting's single source: bytes_ingested = mutation payload
+        # applied to the memtable, bytes_flushed = flush outputs,
+        # bytes_compacted_in/out = compaction task input/output sizes
+        # (compaction/task.py folds them from the same stats it appends
+        # to compaction_history) — amplification() derives WA from
+        # exactly these, so every surface reconciles arithmetically.
+        self.metrics = {"writes": 0, "reads": 0, "flushes": 0,
+                        "bytes_flushed": 0, "bytes_ingested": 0,
+                        "bytes_compacted_in": 0, "bytes_compacted_out": 0}
+        # per-table latency group (TableMetrics role): decaying
+        # read/write latency hists under table.<ks>.<name>.* — counters
+        # stay in the plain dict above (the metrics vtable merges both).
+        # Hists are resolved ONCE: the hot paths touch only the per-hist
+        # lock, never the global registry lock.
+        from ..service.metrics import GLOBAL as _METRICS
+        self.latency = _METRICS.group(
+            f"table.{table.keyspace}.{table.name}")
+        self.read_hist = self.latency.hist("read_latency")
+        self.write_hist = self.latency.hist("write_latency")
+        # sstables consulted per point read (TableMetrics
+        # sstablesPerReadHistogram role) — the observable proof that
+        # timestamp-skip collation is actually skipping
+        self.sstables_per_read = self.latency.hist("sstables_per_read")
+        self.multiread_hist = self.latency.hist("multiread_latency")
+        # corrupt-sstable quarantine (the reference's markSuspect +
+        # JVMStabilityInspector routing): records survive restarts via
+        # the on-disk quarantine/ directory
+        self._quarantine_lock = lockwitness.make_lock("table.quarantine")
+        self.quarantined: list[dict] = list_quarantined(self.directory)
+        from .lifecycle import replay_directory
+        replay_directory(self.directory)
+        for desc in Descriptor.list_in(self.directory):
+            try:
+                self.tracker.add(SSTableReader(desc, self.table))
+            except (CorruptSSTableError, OSError) as e:
+                # a corrupt sstable must not abort store OPEN: route the
+                # error through the policy; best_effort quarantines the
+                # files and the store comes up without them
+                policy = self.failures.handle(e, desc.path("Data.db"))
+                if policy == "best_effort":
+                    self._quarantine_descriptor(desc, e)
+                else:
+                    raise
+        self.compaction_listener = None  # set by CompactionManager
+        # per-compaction stats ring (system_views.compaction_history /
+        # nodetool compactionhistory), newest kept: bounded by the
+        # mutable compaction_history_entries knob (a StorageEngine
+        # rebinds on knob change; standalone stores read the config
+        # default) — the engine-lifetime unbounded list this replaced
+        # grew one dict per compaction forever
+        from collections import deque as _deque
+
+        from ..config import Config as _ConfigDefaults
+        # class-attribute read: the dataclass default, no throwaway
+        # Config() instance per store (a StorageEngine rebinds from
+        # live settings right after open)
+        self.compaction_history: _deque = _deque(
+            maxlen=self._history_maxlen(
+                _ConfigDefaults.compaction_history_entries))
+        self._comp_hist_lock = lockwitness.make_lock(
+            "table.comp_history")
+        # space-amplification estimate cached per live generation set
+        # (the _mesh_bounds_cache pattern): the token-union walk is
+        # O(P log P) and only changes when the sstable set does
+        self._sa_cache: tuple | None = None
+        # mesh routing width: a StorageEngine points this at ITS
+        # compaction_mesh_devices knob (the fanout pool is process-
+        # global, sized to the max across engines — a co-hosted
+        # engine's knob must not flip this store's data plane); a
+        # standalone store follows the anonymous process demand
+        from ..parallel import fanout as _fanout_mod
+        self.mesh_devices_fn = _fanout_mod.mesh_devices
+        # decode-ahead routing mirrors the mesh knob: a StorageEngine
+        # points this at ITS `compaction_decode_ahead` setting; a
+        # standalone store reads the knob's config DEFAULT (so a
+        # default change propagates here without a second edit)
+        from ..config import Config as _Config
+        self.decode_ahead_fn = \
+            lambda: bool(_Config().compaction_decode_ahead)
+        # device-side block compression routing follows the same shape:
+        # a StorageEngine points this at ITS hot-reloadable
+        # `compaction_device_compress` setting; a standalone store
+        # reads the config default
+        self.device_compress_fn = \
+            lambda: bool(_Config().compaction_device_compress)
+        # analytical-scan device kernel routing, same shape again: a
+        # StorageEngine points this at ITS hot-reloadable
+        # `scan_device_filter` setting; scan_filtered re-reads it PER
+        # SEGMENT (results identical either way)
+        self.scan_device_filter_fn = \
+            lambda: bool(_Config().scan_device_filter)
+        # eager attached-index builds: a StorageEngine points this at
+        # IndexManager.build_eager so new sstables (flush/compaction)
+        # get their index components in the writer tail; a standalone
+        # store has no index registry to feed
+        self.index_build_fn = None
+        # planned mesh boundaries, keyed (live generations, n_shards):
+        # planning walks every live sstable's partition directory
+        # (O(P log P) in total partitions) and only changes when the
+        # sstable set does — one cached plan per live view
+        self._mesh_bounds_cache: tuple | None = None
+        # the row-cache store key is the data directory: unique per
+        # store, so in-process multi-node clusters never cross-serve
+        self.row_cache = RowCache(self.directory) \
+            if table.params.caching.get(
+                "rows_per_partition", "NONE") != "NONE" else None
+        if self.row_cache is not None:
+            # entries surviving from a previous in-process store over
+            # this directory predate whatever happened to it since
+            self.row_cache.clear()
+        self._gen_lock = lockwitness.make_lock("table.gen")
+        # quarantined generations count too: their files left the live
+        # directory, and a restart re-minting one of their numbers
+        # would make the quarantine records misreport the new sstable
+        # (and its dedupe block a future quarantine of it)
+        self._last_gen = max(
+            [d.generation for d in Descriptor.list_in(self.directory)]
+            + [q["generation"] for q in self.quarantined],
+            default=0)
+
+    @staticmethod
+    def _history_maxlen(n) -> int | None:
+        """compaction_history_entries knob → deque maxlen (<= 0 means
+        unbounded, the pre-bound behavior)."""
+        n = int(n)
+        return n if n > 0 else None
+
+    def set_compaction_history_capacity(self, n) -> None:
+        """Hot-apply the mutable compaction_history_entries knob:
+        rebuild the ring at the new bound, NEWEST entries kept (deque
+        maxlen cannot be resized in place). The swap and the task-side
+        append (record_compaction) share a lock — a compaction
+        finishing mid-hot-set must not land its entry on the discarded
+        ring."""
+        from collections import deque as _deque
+        maxlen = self._history_maxlen(n)
+        with self._comp_hist_lock:
+            self.compaction_history = _deque(self.compaction_history,
+                                             maxlen=maxlen)
+
+    def record_compaction(self, stats: dict) -> None:
+        """Fold one finished compaction into the store's observability
+        state: the bounded history ring (under the swap lock) and the
+        monotonic amplification counters, which survive ring
+        eviction."""
+        with self._comp_hist_lock:
+            self.compaction_history.append(stats)
+        self.metrics["bytes_compacted_in"] = \
+            self.metrics.get("bytes_compacted_in", 0) \
+            + stats.get("bytes_read", 0)
+        self.metrics["bytes_compacted_out"] = \
+            self.metrics.get("bytes_compacted_out", 0) \
+            + stats.get("bytes_written", 0)
+
+    # ------------------------------------------------------ amplification --
+
+    def amplification(self) -> dict:
+        """Observed per-table write/space amplification — the signals
+        the adaptive-compaction loop (ROADMAP item 4) tunes by, derived
+        from the SAME counters every other surface reports so bench /
+        check_observatory can reconcile them arithmetically:
+
+        - write_amplification = (bytes_flushed + bytes_compacted_out)
+          / bytes_ingested — physical bytes written per logical byte
+          the memtable absorbed (the RocksDB-style W-Amp; 0.0 until
+          anything was ingested).
+        - space_amplification = total live partition INSTANCES /
+          distinct live partitions across the sstable set's partition
+          directories (token arrays already resident — no decode). A
+          fully-compacted table reads 1.0; N overlapping copies of the
+          same keys read ≈ N. This is the live-vs-logical size ratio
+          in partition units, the overlap signal `sstables_per_read`
+          measures from the read side.
+        """
+        m = self.metrics
+        ingested = m.get("bytes_ingested", 0)
+        written = m.get("bytes_flushed", 0) \
+            + m.get("bytes_compacted_out", 0)
+        wa = (written / ingested) if ingested > 0 else 0.0
+        live = self.tracker.view()
+        # the O(P log P) token-union walk is cached per live
+        # generation set: callers include the history sampler tick and
+        # the METRICS_SNAPSHOT handler on the single messaging
+        # dispatch worker — neither may pay the sort when the sstable
+        # set has not changed
+        key = tuple(r.desc.generation for r in live)
+        cached = self._sa_cache
+        if cached is not None and cached[0] == key:
+            sa = cached[1]
+        else:
+            total_parts = sum(s.n_partitions for s in live)
+            if total_parts > 0:
+                toks = np.concatenate(
+                    [np.asarray(s.partition_tokens)
+                     for s in live if s.n_partitions > 0])
+                distinct = len(np.unique(toks))
+                sa = total_parts / max(distinct, 1)
+            else:
+                sa = 1.0
+            self._sa_cache = (key, sa)
+        return {"write_amplification": round(wa, 6),
+                "space_amplification": round(sa, 6)}
+
+    def set_compaction_params(self, params: dict) -> dict:
+        """Hot-swap the table's compaction params (the ALTER TABLE /
+        adaptive-controller actuation seam). `get_strategy` reads
+        `table.params.compaction` fresh on every selection, so the NEXT
+        selection sees the new strategy; a task already in flight keeps
+        its claimed inputs (CompactionManager's claim registry) and
+        finishes under the OLD plan — the swap is a single reference
+        assignment, never a mutation of the dict a running selection
+        might hold. Returns the previous params; notifies the
+        compaction listener so the new strategy gets a prompt look at
+        the existing sstable set."""
+        old = dict(self.table.params.compaction)
+        self.table.params.compaction = dict(params)
+        if self.compaction_listener:
+            self.compaction_listener(self)
+        return old
+
+    def reload_sstables(self) -> None:
+        """Pick up sstables written into the directory out-of-band
+        (bulk load / sstableloader role). NOT safe concurrently with
+        in-process flush/compaction — those register their outputs with
+        the tracker themselves; calling this mid-write can double-add a
+        generation. Quiesce writes first."""
+        with self._gen_lock:
+            known = {s.desc.generation for s in self.tracker.view()}
+            for desc in Descriptor.list_in(self.directory):
+                if desc.generation not in known:
+                    self.tracker.add(SSTableReader(desc, self.table))
+                    self._last_gen = max(self._last_gen, desc.generation)
+        if self.row_cache is not None:
+            self.row_cache.clear()   # bulk-loaded data changes content
+
+    def next_generation(self) -> int:
+        """Race-free generation allocation shared by flush + compaction
+        (a directory re-scan alone is a TOCTOU between writers)."""
+        with self._gen_lock:
+            self._last_gen = max(self._last_gen + 1,
+                                 Descriptor.next_generation(self.directory))
+            return self._last_gen
+
+    # --------------------------------------------------------- quarantine --
+
+    def _quarantine_descriptor(self, desc, err) -> dict | None:
+        """Move one generation's files into quarantine/ and record it.
+        Idempotent per generation (concurrent readers hitting the same
+        rot race to a single quarantine)."""
+        with self._quarantine_lock:
+            if any(q["generation"] == desc.generation
+                   for q in self.quarantined):
+                return None
+            entry = quarantine_descriptor_files(desc, reason=repr(err))
+            self.quarantined.append(entry)
+        return entry
+
+    def quarantine_sstable(self, sst: SSTableReader, err) -> dict | None:
+        """Blacklist a corrupt sstable out of the live view: snapshot
+        its components into quarantine/ for forensics, drop it from the
+        tracker (reads, compaction candidate selection, streaming and
+        snapshots all plan from the tracker), and invalidate every
+        cache that could still serve its bytes. In-flight reads holding
+        the reader finish safely on its open fd (release, not close)."""
+        entry = self._quarantine_descriptor(sst.desc, err)
+        if entry is None:
+            return None
+        self.tracker.replace([sst], [])
+        sst.release()
+        from .chunk_cache import GLOBAL as chunk_cache
+        from .key_cache import GLOBAL as key_cache
+        chunk_cache.invalidate_generation(sst.desc.directory,
+                                          sst.desc.generation)
+        key_cache.invalidate_generation(sst.desc.directory,
+                                        sst.desc.generation)
+        if self.row_cache is not None:
+            # cached merges were computed over a source set that
+            # included the quarantined sstable
+            self.row_cache.clear()
+        # diagnostic event + flight-recorder bundle: quarantine is an
+        # irreversible decision the black box must have context for
+        self.failures.notify_quarantine(
+            {**entry, "keyspace": self.table.keyspace,
+             "table": self.table.name})
+        return entry
+
+    def _degrade_on_corruption(self, sst: SSTableReader,
+                               err: BaseException) -> None:
+        """One sstable failed mid-read. Route through the disk failure
+        policy: best_effort quarantines it and RETURNS so the read
+        re-serves from the remaining sources; every other policy
+        re-raises (ignore = let the request fail; stop/die have already
+        taken the node out of service via the handler)."""
+        path = sst.desc.path("Data.db")
+        policy = self.failures.handle(err, path)
+        if policy != "best_effort":
+            raise err
+        self.quarantine_sstable(sst, err)
+
+    # ------------------------------------------------------------- write --
+
+    def apply(self, mutation: Mutation, commitlog=None,
+              durable: bool = True) -> None:
+        """Commitlog append + memtable put as one unit against a single
+        memtable epoch (Keyspace.applyInternal ordering). The shared
+        side of the write barrier makes every write either fully before
+        a flush's switch point (old memtable, CL position < flush
+        position) or fully after (new memtable, CL position >= flush
+        position) — without serializing writers against each other.
+        The commitlog DURABILITY wait happens outside the barrier:
+        parked writers must not block the writers coalescing behind
+        them (that wait is the group-commit batch forming)."""
+        wait_for = None
+        with self._barrier.shared():
+            if commitlog is not None and durable:
+                _pos, wait_for = commitlog.append(mutation)
+            self.memtable.apply(mutation)
+            self.metrics["writes"] += 1
+            self.metrics["bytes_ingested"] += mutation.size
+        # invalidate BEFORE the durability wait: the memtable already
+        # holds the cells, and a failed sync raising past a stale cache
+        # entry would leave cache-hit and memtable reads divergent
+        if self.row_cache is not None:
+            self.row_cache.invalidate(mutation.pk)
+        if wait_for is not None:
+            commitlog.await_durable(wait_for)
+
+    def apply_batch(self, mutations: list[Mutation], commitlog=None,
+                    durable: bool = True) -> None:
+        """Batched apply against ONE memtable epoch: the whole batch is
+        commitlog-appended under one lock acquisition + one durability
+        barrier (CommitLog.append_batch), then memtable-applied taking
+        each token shard's lock once (Memtable.apply_batch). Same
+        barrier atomicity as apply()."""
+        if not mutations:
+            return
+        wait_for = None
+        with self._barrier.shared():
+            if commitlog is not None and durable:
+                _poss, wait_for = commitlog.append_batch(mutations)
+            self.memtable.apply_batch(mutations)
+            self.metrics["writes"] += len(mutations)
+            self.metrics["bytes_ingested"] += \
+                sum(m.size for m in mutations)
+        # invalidation before the durability wait — see apply()
+        if self.row_cache is not None:
+            for pk in {m.pk for m in mutations}:
+                self.row_cache.invalidate(pk)
+        if wait_for is not None:
+            commitlog.await_durable(wait_for)
+
+    def should_flush(self) -> bool:
+        return self.memtable.live_bytes >= self.flush_threshold
+
+    # ------------------------------------------------------------- flush --
+
+    def flush(self) -> SSTableReader | None:
+        """Switch the memtable and write it out (ColumnFamilyStore.Flush).
+        Returns the new sstable reader (None if memtable was empty).
+
+        Fast lane (CTPU_WRITE_FASTPATH): the retired memtable drains
+        SHARD BY SHARD — each shard's drain+sort (numpy, GIL-releasing)
+        overlaps the previous shard's serialization, the shared
+        compressor pool's parallel compress of earlier segments
+        (storage/sstable/compress_pool.py; ordered completion keeps
+        bytes identical for any pool size) and the writer I/O thread's
+        disk writes — a 4-stage flush pipeline whose output is
+        bit-identical to the serial sort-everything-then-write path
+        (shards are disjoint ascending token ranges, so per-shard
+        sorted runs concatenate in global order; proven by
+        scripts/check_writepath_ab.py and check_compaction_ab.py)."""
+        with self._flush_lock:
+            with self._barrier.exclusive():
+                old = self.memtable
+                if old.is_empty:
+                    return None
+                flush_pos = self.commitlog.current_position() \
+                    if self.commitlog else None
+                self.memtable = Memtable(self.table,
+                                     shards=self.memtable_shards)
+            fast = write_fastpath_enabled()
+            gen = self.next_generation()
+            desc = Descriptor(self.directory, gen)
+            if fast:
+                from .sstable.compress_pool import get_pool
+                pool = get_pool()
+            else:
+                pool = None
+            writer = SSTableWriter(
+                desc, self.table,
+                estimated_partitions=old.partition_count(),
+                threaded_io=fast, compress_pool=pool,
+                metrics_group="flush")
+            try:
+                if fast:
+                    self._append_pipelined(old, writer)
+                else:
+                    writer.append(old.flush_batch())
+                stats = writer.finish()
+                # the read-back is part of the flush: a failure HERE
+                # (EIO/corruption re-opening the just-written sstable)
+                # must restore the memtable too, or acked writes vanish
+                # from reads. abort() after finish() is a no-op on the
+                # renamed components — the orphan sstable reconciles
+                # away (or quarantines) at the next store open.
+                reader = SSTableReader(desc, self.table)
+            except BaseException as e:
+                writer.abort()
+                # a failed flush must not LOSE the memtable: reinstate
+                # the retired one as active (absorbing whatever landed
+                # in its replacement while the doomed write ran) so the
+                # data stays readable and a later flush can retry; the
+                # commitlog segments stay dirty (no discard_completed)
+                self._restore_memtable(old)
+                from ..service import diagnostics
+                diagnostics.publish("flush.abort",
+                                    keyspace=self.table.keyspace,
+                                    table=self.table.name,
+                                    error=repr(e))
+                if isinstance(e, (OSError, CorruptSSTableError)):
+                    self.failures.handle(
+                        e, getattr(writer, "_data_path", ""))
+                raise
+            self.tracker.add(reader)
+            if self.index_build_fn is not None:
+                # eager attached-index components for the new sstable
+                # (build_eager never raises — a failed build falls back
+                # to the lazy first-use path, counted)
+                self.index_build_fn(reader)
+            from ..service import diagnostics
+            diagnostics.publish("flush", keyspace=self.table.keyspace,
+                                table=self.table.name,
+                                generation=gen,
+                                cells=stats.get("n_cells", 0),
+                                bytes=reader.data_size)
+            if self.row_cache is not None:
+                # sstable-set change: cached merges must never outlive
+                # the generation they were computed from (also closes
+                # the switch→tracker.add window where a racing read
+                # could have cached a view missing the flushing data)
+                self.row_cache.clear()
+            if getattr(self, "backup_enabled", lambda: False)():
+                self._backup_sstable(desc)
+            self.metrics["flushes"] += 1
+            self.metrics["bytes_flushed"] += reader.data_size
+            if self.commitlog and flush_pos:
+                self.commitlog.discard_completed(self.table.id, flush_pos)
+            if self.compaction_listener:
+                self.compaction_listener(self)
+            return reader
+
+    def _restore_memtable(self, old: Memtable) -> None:
+        """Flush-failure recovery: swap the retired memtable back in
+        under the exclusive barrier (writers quiesced) after absorbing
+        the replacement's writes, so every acked write is still served
+        from memory and the next flush retries the whole set."""
+        with self._barrier.exclusive():
+            current = self.memtable
+            if not current.is_empty:
+                old.absorb(current)
+            self.memtable = old
+
+    @staticmethod
+    def _append_pipelined(old: Memtable, writer: SSTableWriter) -> None:
+        """Drain → compress → io as three overlapped stages: a drain
+        thread runs the memtable's shard sort generator into a bounded
+        queue (backpressure: two runs in flight), the flush thread packs
+        each run through the writer's native compressor, and the
+        writer's own I/O thread lands bytes on disk. The drain stage
+        reports into the `flush` pipeline ledger: busy = shard
+        drain+sort seconds, stall = seconds parked on the full queue
+        (downstream backpressure)."""
+        import queue
+
+        from ..utils import pipeline_ledger
+        drain_led = pipeline_ledger.ledger("flush").stage("drain")
+        q: queue.Queue = queue.Queue(maxsize=2)
+        err: list[BaseException] = []
+
+        def _drain():
+            try:
+                t_prev = time.perf_counter()
+                for run in old.flush_shards():
+                    t1 = time.perf_counter()
+                    drain_led.add_busy(t1 - t_prev)
+                    drain_led.add_items(
+                        1, getattr(getattr(run, "payload", None),
+                                   "nbytes", 0))
+                    drain_led.note_queue(q.qsize())
+                    q.put(run)
+                    t_prev = time.perf_counter()
+                    drain_led.add_stall(t_prev - t1)
+            except BaseException as e:   # surfaced on the flush thread
+                err.append(e)
+            finally:
+                q.put(None)
+
+        t = threading.Thread(target=_drain, daemon=True,
+                             name="memtable-drain")
+        t.start()
+        done = False
+        try:
+            while True:
+                run = q.get()
+                if run is None:
+                    done = True
+                    break
+                writer.append(run)
+        finally:
+            # if append raised, the producer may be parked on a full
+            # queue: drain to its terminal None so join cannot hang
+            while not done:
+                done = q.get() is None
+            t.join()
+        if err:
+            raise err[0]
+
+    def _backup_sstable(self, desc) -> None:
+        """Hardlink a freshly-flushed sstable's components into
+        backups/ (incremental_backups: every flushed sstable is
+        retained there until the operator clears it — zero copy cost,
+        links share the immutable data blocks)."""
+        bdir = os.path.join(self.directory, "backups")
+        os.makedirs(bdir, exist_ok=True)
+        prefix = f"{desc.version}-{desc.generation}-"
+        for fn in os.listdir(self.directory):
+            if fn.startswith(prefix):
+                dst = os.path.join(bdir, fn)
+                if not os.path.exists(dst):
+                    try:
+                        os.link(os.path.join(self.directory, fn), dst)
+                    except OSError:
+                        import shutil
+                        shutil.copy2(os.path.join(self.directory, fn),
+                                     dst)
+
+    # -------------------------------------------------------------- read --
+
+    def _collate_sources(self, pk: bytes) -> tuple[list, int]:
+        """Gather the partition's per-source views: memtable first, then
+        sstables. With the fast lane on (CTPU_READ_FASTPATH), sstables
+        are consulted in DESCENDING max_ts order and consultation STOPS
+        as soon as the accumulated state is provably newer than every
+        remaining sstable: once a partition-scope deletion with
+        timestamp D has been collected, a remaining sstable whose
+        max_ts < D cannot contribute — every cell it could hold
+        (including its tombstones; the skip is tombstone-aware because
+        deletion shadowing uses ts <= D, see CellBatch.reconcile step 3)
+        is shadowed by D, so the merged result is bit-identical to the
+        full collation (the reference's mostRecentPartitionTombstone
+        break in SinglePartitionReadCommand.queryMemtableAndDisk).
+        Timestamps ALONE never justify a skip: an older sstable may hold
+        rows the newer state does not shadow (docs/read-path.md).
+
+        Returns (sources, sstables_consulted) where consulted counts
+        sstables that passed their bloom filter and did index/data work.
+        """
+        fast = read_fastpath_enabled()
+        sources = []
+        top_pd_ts = None
+        mem = self.memtable
+        m = mem.read_partition(pk)
+        if m is not None:
+            sources.append(m)
+            top_pd_ts = _partition_deletion_ts(m)
+        ssts = self.tracker.view_by_max_ts() if fast \
+            else self.tracker.view()
+        consulted = 0
+        for sst in ssts:
+            if fast and top_pd_ts is not None and sst.max_ts < top_pd_ts:
+                # ts-descending order: every remaining sstable is at
+                # least as old — stop, don't just skip this one
+                break
+            if not sst.might_contain(pk):
+                continue
+            consulted += 1
+            try:
+                part = sst.read_partition(pk)
+            except (CorruptSSTableError, OSError) as e:
+                # graceful degradation: under best_effort the corrupt
+                # source is quarantined and the merge continues over
+                # the remaining sstables (obsolete data possible at
+                # CL.ONE — reference best_effort semantics)
+                self._degrade_on_corruption(sst, e)
+                continue
+            if part is not None:
+                sources.append(part)
+                t = _partition_deletion_ts(part)
+                if t is not None and (top_pd_ts is None or t > top_pd_ts):
+                    top_pd_ts = t
+        return sources, consulted
+
+    def read_partition(self, pk: bytes, now: int | None = None,
+                       limits=None) -> CellBatch:
+        """Merged view of one partition across memtable + sstables
+        (SinglePartitionReadCommand.queryMemtableAndDisk role).
+        `limits` (cellbatch.DataLimits) truncates the RETURNED view at
+        the limit-th live row — the full merge still happens (and still
+        feeds the row cache); truncation spares downstream assembly and,
+        replica-side, the wire."""
+        self.failures.check_can_read()
+        self.metrics["reads"] += 1
+        _t0 = time.perf_counter()
+        from ..service.tracing import active, trace
+        now = now if now is not None else timeutil.now_seconds()
+        read_gen = None
+        if self.row_cache is not None:
+            cached = self.row_cache.get(pk)
+            if cached is not None:
+                if active() is not None:
+                    trace("Row cache hit")
+                if limits is not None:
+                    cached, _ = truncate_live_rows(cached, limits)
+                self.read_hist.update_us(
+                    (time.perf_counter() - _t0) * 1e6)
+                return cached
+            # captured BEFORE the source snapshot (see RowCache.put)
+            read_gen = self.row_cache.generation
+        sources, consulted = self._collate_sources(pk)
+        self.sstables_per_read.update_us(consulted)
+        if active() is not None:   # tracing off: zero-cost path
+            trace(f"Merging {len(sources)} source(s) for partition read")
+        if not sources:
+            from .cellbatch import lanes_for_table
+            merged = CellBatch.empty(lanes_for_table(self.table))
+        else:
+            merged = merge_sorted(sources, now=now)
+        if self.row_cache is not None:
+            self.row_cache.put(pk, merged, read_gen)
+        if limits is not None:
+            merged, _ = truncate_live_rows(merged, limits)
+        self.read_hist.update_us((time.perf_counter() - _t0) * 1e6)
+        return merged
+
+    # batched reads at or above this many outstanding keys route
+    # through the mesh fan-out when `compaction_mesh_devices` is on
+    MESH_READ_MIN_KEYS = 16
+
+    def _batched_merge(self, pending: list[bytes], now: int,
+                       shard_merge: bool = False,
+                       lane_map: dict | None = None) -> tuple[dict, dict]:
+        """One batched collation pass over a key subset: memtable
+        sources, then the timestamp-skip sstable walk with one
+        vectorized probe per sstable, then the merge. Returns
+        ({pk: merged CellBatch}, {pk: sstables consulted}). This is the
+        unit the mesh read route fans out per token shard — keys are
+        independent, so any sharding of `pending` yields results
+        identical to one pass over the whole list.
+
+        shard_merge=True (the mesh route) merges the whole subset's
+        sources in ONE kernel call and slices the result back per
+        partition (_shard_merge_slices) instead of running len(pending)
+        tiny per-key merges: identical results, but the work becomes
+        chunky GIL-releasing numpy/native ops that actually overlap
+        across mesh lanes."""
+        mem = self.memtable
+        sources = {pk: [] for pk in pending}
+        top_pd: dict[bytes, int] = {}
+        consulted = {pk: 0 for pk in pending}
+        for pk in pending:
+            m = mem.read_partition(pk)
+            if m is not None:
+                sources[pk].append(m)
+                t = _partition_deletion_ts(m)
+                if t is not None:
+                    top_pd[pk] = t
+        active_pks = list(pending)
+        for sst in self.tracker.view_by_max_ts():
+            # keys whose accumulated partition deletion already
+            # covers this (and every remaining) sstable drop out
+            active_pks = [pk for pk in active_pks
+                          if top_pd.get(pk) is None
+                          or sst.max_ts >= top_pd[pk]]
+            if not active_pks:
+                break
+            try:
+                parts, passed = sst.read_partitions_batch(active_pks)
+            except (CorruptSSTableError, OSError) as e:
+                # same degradation contract as the single-key path
+                self._degrade_on_corruption(sst, e)
+                continue
+            for pk in passed:
+                consulted[pk] += 1
+            for pk, part in parts.items():
+                sources[pk].append(part)
+                t = _partition_deletion_ts(part)
+                if t is not None and (pk not in top_pd
+                                      or t > top_pd[pk]):
+                    top_pd[pk] = t
+        from .cellbatch import lanes_for_table
+        if shard_merge:
+            return self._shard_merge_slices(pending, sources, now,
+                                            lane_map), consulted
+        merged_map: dict[bytes, CellBatch] = {}
+        for pk in pending:
+            if not sources[pk]:
+                merged_map[pk] = CellBatch.empty(
+                    lanes_for_table(self.table))
+            else:
+                merged_map[pk] = merge_sorted(sources[pk], now=now)
+        return merged_map, consulted
+
+    def _shard_merge_slices(self, pending: list[bytes], sources: dict,
+                            now: int,
+                            lane_map: dict | None = None) -> dict:
+        """One chunky merge for a whole token-range shard instead of
+        len(pending) tiny per-key merges. All keys' source parts flatten
+        into one merge_sorted call (per-key part order preserved, so
+        every identity's reconciliation inputs are exactly the per-key
+        merge's — identities never span partitions, so the winners are
+        identical), and the sorted result slices back per partition by
+        its lane boundaries. The per-key formulation is >80% interpreter
+        overhead at batch scale (measured: 2048 keys x 3 sstables spend
+        7.2s of 8.6s in per-key merge_sorted); this one is vectorized
+        work that releases the GIL — which is what lets the mesh lanes
+        actually overlap instead of serializing on the interpreter."""
+        from .cellbatch import lanes_for_table, pk_lanes
+
+        lanes = lanes_for_table(self.table)
+        out = {pk: CellBatch.empty(lanes) for pk in pending}
+        parts = [p for pk in pending for p in sources[pk]]
+        if not parts:
+            return out
+        merged = merge_sorted(parts, now=now)
+        n = len(merged)
+        if n == 0:
+            return out
+        part_new = np.ones(n, dtype=bool)
+        part_new[1:] = (merged.lanes[1:, :4]
+                        != merged.lanes[:-1, :4]).any(axis=1)
+        starts = np.flatnonzero(part_new)
+        ends = np.append(starts[1:], n)
+        slot = {tuple(int(x) for x in merged.lanes[s, :4]): i
+                for i, s in enumerate(starts)}
+        for pk in pending:
+            # one murmur3/token hash per key per request: the mesh route
+            # computed these when it planned the shards
+            lt = lane_map[pk] if lane_map is not None \
+                else tuple(pk_lanes(pk))
+            i = slot.get(lt)
+            if i is None:
+                continue   # absent, or fully purged in the merge
+            key = b"".join(int(x).to_bytes(4, "big") for x in lt)
+            out[pk] = self._copy_slice(merged, int(starts[i]),
+                                       int(ends[i]), {key: pk})
+        return out
+
+    @staticmethod
+    def _copy_slice(b: CellBatch, lo: int, hi: int,
+                    pk_map: dict) -> CellBatch:
+        """Owned copy of rows [lo, hi) — unlike CellBatch.slice_range's
+        zero-copy views, results handed to callers (and pinned by the
+        row cache) must not keep the whole shard's arrays alive. The
+        caller supplies the slice's OWN pk_map (one partition → one
+        entry): sharing the shard's full map would pin every key's pk
+        bytes in the row cache and ship the whole map per partition in
+        coordinator serialization."""
+        base = int(b.off[lo])
+        out = CellBatch(b.lanes[lo:hi].copy(), b.ts[lo:hi].copy(),
+                        b.ldt[lo:hi].copy(), b.ttl[lo:hi].copy(),
+                        b.flags[lo:hi].copy(), b.off[lo:hi + 1] - base,
+                        b.val_start[lo:hi] - base,
+                        b.payload[base:int(b.off[hi])].copy(),
+                        pk_map, sorted=True)
+        out.ck_comp = b.ck_comp
+        out.ck_fits_prefix = b.ck_fits_prefix
+        return out
+
+    def _mesh_boundaries(self, n_shards: int):
+        """Count-weighted token boundaries over the live sstable set
+        (parallel/mesh.boundaries_from_indexes), cached per (live
+        generations, n_shards): the plan walks every live partition
+        directory, but only changes when the sstable set does —
+        flush/compaction/quarantine all change the generation tuple,
+        so the key self-invalidates."""
+        view = self.tracker.view()
+        if not view:
+            return None
+        key = (tuple(r.desc.generation for r in view), n_shards)
+        cached = self._mesh_bounds_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from ..parallel.boundaries import boundaries_from_indexes
+        bounds = boundaries_from_indexes(view, n_shards)
+        self._mesh_bounds_cache = (key, bounds)
+        return bounds
+
+    def _mesh_read_shards(self, pending: list[bytes],
+                          n_shards: int) -> tuple[list, dict] | None:
+        """Split a large key batch into token-range shards by the
+        count-weighted quantile boundaries planned from the live
+        sstables' partition indexes (the same planner mesh compaction
+        uses). Returns (non-empty shard key lists, pk -> partition-lane
+        tuples — hashed ONCE here and reused by the shard merges), or
+        None when the table has no index samples or everything lands in
+        one shard."""
+        if n_shards < 2:
+            return None
+        bounds = self._mesh_boundaries(n_shards)
+        if bounds is None or not len(bounds):
+            return None
+        from .cellbatch import pk_lanes
+        lane_map = {pk: pk_lanes(pk) for pk in pending}
+        lanes = np.array([lane_map[pk] for pk in pending],
+                         dtype=np.uint64)
+        tok = (lanes[:, 0] << np.uint64(32)) | lanes[:, 1]
+        shard_of = np.searchsorted(np.asarray(bounds, dtype=np.uint64),
+                                   tok, side="left")
+        shards = [[] for _ in range(n_shards)]
+        for pk, s in zip(pending, shard_of):
+            shards[int(s)].append(pk)
+        shards = [s for s in shards if s]
+        return (shards, lane_map) if len(shards) >= 2 else None
+
+    def read_partitions(self, pks: list[bytes], now: int | None = None,
+                        limits=None) -> list[tuple[bytes, CellBatch]]:
+        """Batched multi-partition read (the `IN (...)` / multi-key
+        internal-read fast lane). Per sstable, ALL still-outstanding keys
+        resolve their bloom + key-cache + partition-directory candidates
+        in one vectorized probe and the hit segments decode once for
+        every partition they cover (SSTableReader.read_partitions_batch)
+        instead of N independent read_partition walks. Timestamp-skip
+        collation applies per key, exactly as in read_partition. Returns
+        [(pk, merged batch)] in input order; duplicate keys share one
+        merge. Falls back to per-key reads when the fastpath is off."""
+        self.failures.check_can_read()
+        if not read_fastpath_enabled():
+            return [(pk, self.read_partition(pk, now=now, limits=limits))
+                    for pk in pks]
+        _t0 = time.perf_counter()
+        from ..service.tracing import active, trace
+        now = now if now is not None else timeutil.now_seconds()
+        self.metrics["reads"] += len(pks)
+        merged: dict[bytes, CellBatch] = {}
+        read_gen = None
+        pending: list[bytes] = []
+        for pk in dict.fromkeys(pks):       # unique, input-ordered
+            if self.row_cache is not None:
+                cached = self.row_cache.get(pk)
+                if cached is not None:
+                    merged[pk] = cached
+                    continue
+            pending.append(pk)
+        if self.row_cache is not None and pending:
+            read_gen = self.row_cache.generation
+        if pending:
+            from ..parallel import fanout as fanout_mod
+            n_mesh = self.mesh_devices_fn()
+            fan = fanout_mod.get_fanout() if n_mesh > 0 else None
+            shard_lists = lane_map = None
+            if fan is not None and len(pending) >= self.MESH_READ_MIN_KEYS:
+                sharded = self._mesh_read_shards(pending, n_mesh)
+                if sharded is not None:
+                    shard_lists, lane_map = sharded
+            if shard_lists is not None:
+                # mesh route: keys sharded by the count-weighted token
+                # boundaries from the sstable partition indexes, one
+                # collation pass per shard across the mesh lanes. Keys
+                # are independent, so sharded results == serial results.
+                from ..service.metrics import GLOBAL as _MESH_M
+                _MESH_M.incr("mesh.batch_reads")
+                _MESH_M.incr("mesh.read_keys", len(pending))
+                # shard dispatch/completion under the active trace:
+                # lanes run on fanout worker threads (no contextvar),
+                # so the coordinator's TraceState is captured here and
+                # appended to directly — earlier lanes were invisible in
+                # system_traces.events without this
+                _tr = active()
+
+                def _run_shard(s):
+                    if _tr is not None:
+                        _tr.add(f"Mesh read shard {s} dispatched "
+                                f"({len(shard_lists[s])} key(s))")
+                    out = self._batched_merge(shard_lists[s], now,
+                                              shard_merge=True,
+                                              lane_map=lane_map)
+                    if _tr is not None:
+                        _tr.add(f"Mesh read shard {s} complete")
+                    return out
+
+                outs = fan.map_shards(_run_shard, len(shard_lists))
+                merged_map: dict[bytes, CellBatch] = {}
+                consulted: dict[bytes, int] = {}
+                for m_map, cons in outs:
+                    merged_map.update(m_map)
+                    consulted.update(cons)
+            else:
+                merged_map, consulted = self._batched_merge(pending, now)
+            if active() is not None:
+                trace(f"Batched read: {len(pending)} partition(s), "
+                      f"{len(self.tracker.view())} live sstable(s)"
+                      + (f", {len(shard_lists)} mesh shard(s)"
+                         if shard_lists is not None else ""))
+            for pk in pending:
+                self.sstables_per_read.update_us(consulted[pk])
+                m = merged_map[pk]
+                if self.row_cache is not None:
+                    self.row_cache.put(pk, m, read_gen)
+                merged[pk] = m
+        self.multiread_hist.update_us((time.perf_counter() - _t0) * 1e6)
+        if limits is None:
+            return [(pk, merged[pk]) for pk in pks]
+        return [(pk, truncate_live_rows(merged[pk], limits)[0])
+                for pk in pks]
+
+    def scan_all(self, now: int | None = None) -> CellBatch:
+        """Full-table merged view (range-read building block). With the
+        mesh lanes on (`compaction_mesh_devices`), the scan shards by
+        the count-weighted token boundaries and each shard's
+        decode+merge runs on its own lane; the shards concatenate in
+        token order into exactly the serial merge (token-range shard
+        order IS identity-lane order)."""
+        self.failures.check_can_read()
+        now = now if now is not None else timeutil.now_seconds()
+        from ..parallel import fanout as fanout_mod
+        n_mesh = self.mesh_devices_fn()
+        fan = fanout_mod.get_fanout() if n_mesh > 0 else None
+        if fan is not None and self.tracker.view():
+            from ..parallel.boundaries import boundaries_to_ranges
+            bounds = self._mesh_boundaries(n_mesh)
+            if bounds is not None and len(bounds):
+                from ..service.metrics import GLOBAL as _MESH_M
+                _MESH_M.incr("mesh.range_scans")
+                ranges = boundaries_to_ranges(bounds, len(bounds) + 1)
+                parts = fan.map_shards(
+                    lambda s: self.scan_window(ranges[s][0], ranges[s][1],
+                                               now=now),
+                    len(ranges))
+                parts = [p for p in parts if len(p)]
+                if not parts:
+                    from .cellbatch import lanes_for_table
+                    return CellBatch.empty(lanes_for_table(self.table))
+                out = parts[0] if len(parts) == 1 \
+                    else CellBatch.concat(parts)
+                out.sorted = True
+                return out
+        sources = [self.memtable.scan()]
+        for sst in self.tracker.view():
+            try:
+                segs = list(sst.scanner())
+            except (CorruptSSTableError, OSError) as e:
+                # full scans degrade like scan_window/point reads
+                # (best_effort quarantines the rotten source and the
+                # scan continues) — and identically to the mesh route,
+                # which reaches the same handling via scan_window, so
+                # the error surface does not depend on the mesh knob
+                self._degrade_on_corruption(sst, e)
+                continue
+            if segs:
+                cat = CellBatch.concat(segs)
+                cat.sorted = True
+                sources.append(cat)
+        return merge_sorted([s for s in sources if len(s)] or sources[:1],
+                            now=now)
+
+    def scan_window(self, lo: int, hi: int,
+                    now: int | None = None) -> CellBatch:
+        """Merged view of partitions with token in (lo, hi] — the bounded
+        range-read primitive behind paging (service/pager/QueryPagers
+        role: read a window, not the table)."""
+        self.failures.check_can_read()
+        now = now if now is not None else timeutil.now_seconds()
+        sources = [self.memtable.scan_window(lo, hi)]
+        for sst in self.tracker.view():
+            try:
+                w = sst.scan_tokens(lo, hi)
+            except (CorruptSSTableError, OSError) as e:
+                # range reads degrade like point reads (best_effort
+                # quarantines the rotten source and the scan continues)
+                self._degrade_on_corruption(sst, e)
+                continue
+            if w is not None and len(w):
+                sources.append(w)
+        sources = [s for s in sources if len(s)]
+        if not sources:
+            from .cellbatch import lanes_for_table
+            return CellBatch.empty(lanes_for_table(self.table))
+        return merge_sorted(sources, now=now)
+
+    def scan_filtered(self, pred, now: int | None = None,
+                      use_device=None) -> tuple[list, dict]:
+        """Analytical scan fast lane. Phase A discovers the partitions
+        that MAY hold a row matching `pred` without assembling any
+        rows: per sstable, zone maps (index/sstable_index.py ZMP1)
+        prune whole segments — and whole sstables — before decode, and
+        the surviving segments' value lanes run through the
+        ops/device_scan.py predicate kernels (host numpy reference per
+        segment on fallback, results identical). Phase B reads JUST the
+        candidate partitions through read_partitions, so callers get
+        exactly the merged, reconciled view a naive full scan would
+        have produced for those partitions — Phase A is a provable
+        superset (a winning live cell exists in some source and its
+        segment/zone bounds contain its key), and the executor
+        re-verifies every candidate row with the exact predicate.
+
+        With the mesh lanes on, Phase A fans token-range shards across
+        the fanout exactly like scan_all; candidates drain in token
+        order. `use_device`: None = consult the engine's hot-reloadable
+        `scan_device_filter` knob PER SEGMENT; bool = pin; callable =
+        consulted per segment (the device_compress gate pattern — a
+        mid-scan flip moves work at the next segment boundary).
+
+        Returns ([(pk, merged CellBatch)] in token order, info dict
+        with the prune accounting)."""
+        self.failures.check_can_read()
+        now = now if now is not None else timeutil.now_seconds()
+        from ..index import sstable_index as ssi_mod
+        from ..ops import device_scan as ds
+        from ..service.metrics import GLOBAL as _M
+        from ..utils import pipeline_ledger
+        from .cellbatch import batch_tokens, pk_lanes
+        led = pipeline_ledger.ledger("scan")
+        st_prune = led.stage("prune")
+        st_filter = led.stage("filter")
+        st_gather = led.stage("gather")
+
+        if use_device is None:
+            gate = self.scan_device_filter_fn
+        elif callable(use_device):
+            gate = use_device
+        else:
+            gate = lambda _v=bool(use_device): _v  # noqa: E731
+
+        _KEYS = ("segments_total", "segments_skipped",
+                 "sstables_skipped", "device_segments", "host_segments")
+        info = dict.fromkeys(_KEYS, 0)
+
+        def _scan_sources(view, lo, hi):
+            """Candidate pks among `view` for tokens in (lo, hi]."""
+            pks = set()
+            loc = dict.fromkeys(_KEYS, 0)
+            for sst in view:
+                try:
+                    span = sst.segment_range_for_tokens(lo, hi)
+                    if span is None:
+                        continue
+                    s0, s1 = span
+                    with st_prune.busy():
+                        zm = ssi_mod.zonemap_for(sst, self.table)
+                        keep = zm.keep_mask(pred)[s0:s1] \
+                            if zm is not None \
+                            else np.ones(s1 - s0, dtype=bool)
+                    loc["segments_total"] += s1 - s0
+                    n_keep = int(keep.sum())
+                    loc["segments_skipped"] += (s1 - s0) - n_keep
+                    if n_keep == 0:
+                        loc["sstables_skipped"] += 1
+                        continue
+                    for s in range(s0, s1):
+                        if not keep[s - s0]:
+                            continue
+                        batch = sst._read_segment(s)
+                        with st_filter.busy():
+                            sel, keys = ds.batch_predicate_cells(
+                                batch, pred, reconciled=False)
+                            if not len(sel):
+                                continue
+                            mask, on_dev = ds.segment_mask(
+                                keys, pred, bool(gate()))
+                        loc["device_segments" if on_dev
+                            else "host_segments"] += 1
+                        st_filter.add_items(len(sel))
+                        hit = sel[mask]
+                        if not len(hit):
+                            continue
+                        toks = batch_tokens(batch)[hit]
+                        for i in hit[(toks > lo) & (toks <= hi)]:
+                            pks.add(batch.partition_key(int(i)))
+                except (CorruptSSTableError, OSError) as e:
+                    # sharded scans degrade per SOURCE like scan_window
+                    self._degrade_on_corruption(sst, e)
+                    continue
+            return pks, loc
+
+        pks: set = set()
+        # memtable: always scanned on the coordinator (small, always
+        # fresh, no zone maps to consult)
+        mem = self.memtable.scan()
+        if len(mem):
+            with st_filter.busy():
+                sel, keys = ds.batch_predicate_cells(mem, pred,
+                                                     reconciled=False)
+                if len(sel):
+                    mask, _ = ds.segment_mask(keys, pred, bool(gate()))
+                    for i in sel[mask]:
+                        pks.add(mem.partition_key(int(i)))
+        view = self.tracker.view()
+        from ..parallel import fanout as fanout_mod
+        n_mesh = self.mesh_devices_fn()
+        fan = fanout_mod.get_fanout() if n_mesh > 0 else None
+        ranges = None
+        if fan is not None and view:
+            from ..parallel.boundaries import boundaries_to_ranges
+            bounds = self._mesh_boundaries(n_mesh)
+            if bounds is not None and len(bounds):
+                ranges = boundaries_to_ranges(bounds, len(bounds) + 1)
+        if ranges is not None:
+            _M.incr("scan.mesh_scans")
+            outs = fan.map_shards(
+                lambda s: _scan_sources(view, ranges[s][0],
+                                        ranges[s][1]),
+                len(ranges))
+            for ps, loc in outs:
+                pks |= ps
+                for k in _KEYS:
+                    info[k] += loc[k]
+        elif view:
+            ps, loc = _scan_sources(view, -(1 << 63), (1 << 63) - 1)
+            pks |= ps
+            for k in _KEYS:
+                info[k] += loc[k]
+        for k in _KEYS:
+            if info[k]:
+                _M.incr(f"scan.{k}", info[k])
+        _M.incr("scan.candidates", len(pks))
+        # lane order IS token order (the bias-xor is order-preserving)
+        ordered = sorted(pks, key=pk_lanes)
+        info["candidates"] = len(ordered)
+        with st_gather.busy():
+            out = self.read_partitions(ordered, now=now) if ordered \
+                else []
+        st_gather.add_items(len(out))
+        return out, info
+
+    def scan_filtered_aggregate(self, pred, now: int | None = None,
+                                use_device=None) -> tuple:
+        """Exact (count, min, max, int_sum, info) of the predicate
+        column over the reconciled candidate partitions — the
+        aggregation leg that never materializes a row dict host-side.
+        Only valid for EXACT predicate kinds (pred.exact): there the
+        key-space mask equals the executor's `_match` row for row on
+        reconciled batches, so the device fold IS the aggregate."""
+        from ..ops import device_scan as ds
+        from .cellbatch import CellBatch
+        batches, info = self.scan_filtered(pred, now=now,
+                                           use_device=use_device)
+        if use_device is None:
+            gate = self.scan_device_filter_fn
+        elif callable(use_device):
+            gate = use_device
+        else:
+            gate = lambda _v=bool(use_device): _v  # noqa: E731
+        parts = [b for _pk, b in batches if len(b)]
+        if not parts:
+            info["fold_on_device"] = False
+            return 0, None, None, 0, info
+        big = CellBatch.concat(parts) if len(parts) > 1 else parts[0]
+        cnt, kmn, kmx, sm, on_dev = ds.fold_batch(big, pred,
+                                                  bool(gate()))
+        info["fold_on_device"] = on_dev
+        if cnt == 0:
+            return 0, None, None, 0, info
+        return (cnt, ds.value_of_key(pred.kind, kmn),
+                ds.value_of_key(pred.kind, kmx), sm, info)
+
+    def next_partition_tokens(self, after: int, k: int) -> list[int]:
+        """The first k distinct partition tokens > after, across the
+        memtable and every sstable's partition directory — how the pager
+        sizes its next window without scanning data."""
+        cands: set[int] = set()
+        side = "left" if after == -(1 << 63) else "right"
+        from .cellbatch import batch_tokens
+        mem = self.memtable.scan()
+        if len(mem):
+            toks = batch_tokens(mem)
+            i = int(np.searchsorted(toks, after, side=side))
+            uniq = np.unique(toks[i:])
+            cands.update(int(t) for t in uniq[:k])
+        for sst in self.tracker.view():
+            toks = sst.partition_tokens
+            i = int(np.searchsorted(toks, after, side=side))
+            cands.update(int(t) for t in toks[i:i + k])
+        return sorted(cands)[:k]
+
+    def iter_scan(self, now: int | None = None, after: int = -(1 << 63),
+                  window_parts: int = 64, limits=None):
+        """Yield merged CellBatches window by window, each window covering
+        up to window_parts partitions — full scans in bounded memory.
+        `limits` truncates each window at its live-row bound (the local
+        leg of the DataLimits range pushdown — spares row assembly)."""
+        now = now if now is not None else timeutil.now_seconds()
+        pos = after
+        while True:
+            toks = self.next_partition_tokens(pos, window_parts)
+            if not toks:
+                return
+            hi = toks[-1]
+            batch = self.scan_window(pos, hi, now=now)
+            if limits is not None:
+                # local leg of the range DataLimits pushdown: spare the
+                # row assembly beyond the limit (distributed stores
+                # truncate replica-side and track `more` themselves)
+                batch, _ = truncate_live_rows(batch, limits)
+            if len(batch):
+                yield batch
+            pos = hi
+
+    # --------------------------------------------------------------- misc --
+
+    def live_sstables(self) -> list[SSTableReader]:
+        return self.tracker.view()
+
+    def truncate(self) -> None:
+        if self.row_cache is not None:
+            self.row_cache.clear()
+        with self._barrier.exclusive():
+            self.memtable = Memtable(self.table,
+                                     shards=self.memtable_shards)
+            old = self.tracker.view()
+            self.tracker.replace(old, [])
+            from .chunk_cache import GLOBAL as chunk_cache
+            from .key_cache import GLOBAL as key_cache
+            for sst in old:
+                sst.close()
+                chunk_cache.invalidate_generation(sst.desc.directory,
+                                                  sst.desc.generation)
+                key_cache.invalidate_generation(sst.desc.directory,
+                                                sst.desc.generation)
+                # the whole generation family: standard components AND
+                # attached index components (Index_<col>.db)
+                prefix = f"{sst.desc.version}-{sst.desc.generation}-"
+                for fn in os.listdir(self.directory):
+                    if fn.startswith(prefix):
+                        os.remove(os.path.join(self.directory, fn))
+        if self.row_cache is not None:
+            # again AFTER the switch: a read that raced the truncate
+            # may have re-cached pre-truncate content
+            self.row_cache.clear()

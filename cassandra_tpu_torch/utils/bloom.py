@@ -1,0 +1,78 @@
+"""Bloom filter over partition keys, built in batch.
+
+Reference semantics: utils/BloomFilter.java:31 — k indexes derived from
+murmur3 x64/128 as (h1 + i*h2) mod bits (Kirsch-Mitzenmacher double
+hashing), bitset in utils/obs/OffHeapBitSet. Here the bitset is a numpy
+uint64 array and adds/queries are vectorised over whole key batches — the
+flush path hashes every partition key in one call (see
+storage/sstable/writer.py)."""
+from __future__ import annotations
+
+import math
+import struct
+
+import numpy as np
+
+from . import murmur3
+
+
+def optimal_params(n: int, fp_rate: float) -> tuple[int, int]:
+    """(bits, k) for n elements at the target false-positive rate."""
+    n = max(n, 1)
+    bits = max(64, int(math.ceil(-n * math.log(fp_rate) / (math.log(2) ** 2))))
+    bits = (bits + 63) // 64 * 64
+    k = max(1, int(round(bits / n * math.log(2))))
+    return bits, min(k, 20)
+
+
+class BloomFilter:
+    def __init__(self, bits: int, k: int):
+        self.bits = bits
+        self.k = k
+        self.words = np.zeros(bits // 64, dtype=np.uint64)
+
+    @classmethod
+    def create(cls, n: int, fp_rate: float = 0.01) -> "BloomFilter":
+        return cls(*optimal_params(n, fp_rate))
+
+    def _indexes(self, h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
+        i = np.arange(self.k, dtype=np.uint64)
+        with np.errstate(over="ignore"):
+            idx = (h1[:, None] + i[None, :] * h2[:, None]) % np.uint64(self.bits)
+        return idx
+
+    def add_batch(self, keys: list[bytes]) -> None:
+        if not keys:
+            return
+        h1, h2 = murmur3.hash128_batch(keys)
+        idx = self._indexes(h1, h2).ravel()
+        np.bitwise_or.at(self.words, (idx >> np.uint64(6)).astype(np.int64),
+                         np.uint64(1) << (idx & np.uint64(63)))
+
+    def add(self, key: bytes) -> None:
+        self.add_batch([key])
+
+    def might_contain_batch(self, keys: list[bytes]) -> np.ndarray:
+        if not keys:
+            return np.zeros(0, dtype=bool)
+        h1, h2 = murmur3.hash128_batch(keys)
+        idx = self._indexes(h1, h2)
+        w = self.words[(idx >> np.uint64(6)).astype(np.int64)]
+        hit = (w >> (idx & np.uint64(63))) & np.uint64(1)
+        return hit.all(axis=1)
+
+    def might_contain(self, key: bytes) -> bool:
+        return bool(self.might_contain_batch([key])[0])
+
+    # ------------------------------------------------------------- serde --
+
+    def serialize(self) -> bytes:
+        head = struct.pack("<QII", self.bits, self.k, 0)
+        return head + self.words.tobytes()
+
+    @classmethod
+    def deserialize(cls, data: bytes) -> "BloomFilter":
+        bits, k, _ = struct.unpack_from("<QII", data, 0)
+        bf = cls(bits, k)
+        bf.words = np.frombuffer(data, dtype=np.uint64, offset=16).copy()
+        return bf
