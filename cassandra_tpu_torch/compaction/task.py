@@ -13,10 +13,11 @@ overlap the next round's decode + merge). Three interchangeable,
 bit-identical merge engines:
 
   device  ops/device_write.py — the CUDA kernels (radix sort, reconcile,
-          kept-first gather, META serialize) with the round's columns
-          resident on the card; `device=` picks the card (default
-          `cuda`, raises without one; `cpu` runs the plain PyTorch
-          versions).
+          kept-first gather, META serialize, LZ4 match scan) with the
+          round's columns resident on the card; non-resident and mesh
+          rounds run the plane programs of ops/merge.py; `device=`
+          picks the card (default `cuda`, raises without one; `cpu`
+          runs the plain PyTorch versions).
   native  ops/native/merge.cpp — C++ k-way streaming merge with inline
           reconcile (the CompactionIterator formulation in native code);
           wins when the accelerator link is bandwidth-bound.
@@ -30,6 +31,7 @@ import time
 import numpy as np
 
 from .. import device as devmod
+from ..ops import merge as dmerge
 from ..storage import cellbatch as cb
 from ..storage.lifecycle import LifecycleTransaction
 from ..storage.sstable import Descriptor, SSTableReader, SSTableWriter
@@ -275,8 +277,11 @@ class CompactionTask:
         the compaction is token-range sharded by count-weighted
         boundaries planned from the input sstables' partition indexes
         and the per-shard decode->merge fans across N mesh lanes
-        (host engines: one GIL-releasing worker thread per lane;
-        engine='device' raises, see device_resident). Shard results
+        (engine='device': each shard's round runs the plane programs
+        K6/K7 on card (i + s) % device_count, where cuda:i is the
+        task's device, or on the CPU when the task's device is the
+        CPU; host engines: one GIL-releasing worker
+        thread per lane). Shard results
         drain IN TOKEN ORDER through the same
         compress-pool/threaded-io writer, so output bytes are
         identical to the serial path for every N (token-range shard
@@ -290,27 +295,24 @@ class CompactionTask:
         a second fused kernel serializes each META block — the host
         receives only finished blocks (plus the ragged payload, which
         never leaves it). Rounds the device cannot reproduce exactly
-        (equal-ts ties, kept expired cells, range bounds) fall back
-        per round to the pinned host materialization (counter rounds
-        need K7 and raise), so
+        (equal-ts ties, kept expired cells, counters, range bounds)
+        fall back per round to the pinned host materialization, so
         output bytes are identical to the serial host path always
         (scripts/check_compaction_ab.py device legs). None = on for
-        engine='device'. This package has only the resident device
-        engine: device_resident=False with engine='device' needs the
-        plane programs K6/K7 and raises NotImplementedError, as does
-        the mesh execution mode with engine='device' (K8).
+        engine='device'; False runs every round through the plane
+        programs K6/K7 (ops/merge.py submit_merge) and the host
+        writer; ignored for host engines and under the mesh execution
+        mode (mesh shards drain through the host writer).
         device_compress: device-side block compression for the
         device-resident lane's full segments (ops/device_compress.py)
         — the fused policy-scan kernel compresses META + lanes on the
-        device and the host io thread becomes a pwrite pump (K5, not
-        ported yet). None =
+        device and the host io thread becomes a pwrite pump (K5). None =
         inherit the engine's hot-reloadable `compaction_device_compress`
         knob, re-read by the writer PER SEGMENT (a mid-compaction flip
         moves the work at the next segment boundary); True/False pins
         it. Output bytes are identical for every choice — the native
-        packer runs the same deterministic policy encoder. The device
-        scan (K5) is not ported yet: with the gate on, the first full
-        segment raises NotImplementedError; pass device_compress=False.
+        packer runs the same deterministic policy encoder. A failure
+        of the device scan fails the compaction; nothing falls back.
         device: the torch device of engine='device' (default `cuda`,
         which raises without a card; `cpu` runs the kernels' plain
         PyTorch versions). Ignored by the host engines.
@@ -356,11 +358,6 @@ class CompactionTask:
         self.device_resident = device_resident
         self.device = None
         if self.engine == "device":
-            if not device_resident:
-                raise NotImplementedError(
-                    "engine='device' with device_resident=False needs the "
-                    "plane programs K6/K7, not ported to the CUDA package "
-                    "yet (ROADMAP queue 2, K6/K7)")
             self.device = devmod.resolve(device)
         # tri-state like decode_ahead: None = inherit the owning
         # engine's hot-reloadable `compaction_device_compress` knob
@@ -509,11 +506,18 @@ class CompactionTask:
         prof["mesh_plan"] = prof.get("mesh_plan", 0.0) \
             + (time.perf_counter() - t_plan)
 
+        devices = None
         if self.engine == "device":
-            raise NotImplementedError(
-                "the mesh execution mode of engine='device' needs the "
-                "sharded merge (K8), not ported to the CUDA package yet "
-                "(ROADMAP queue 2, K8); pass mesh_devices=0")
+            if self.device.type == "cuda":
+                import torch
+                # shard s on the card s after the task's own, so that
+                # shard 0 runs where the task was placed
+                n_cards = torch.cuda.device_count()
+                first = self.device.index or 0
+                devices = [torch.device("cuda", (first + i) % n_cards)
+                           for i in range(n_devices)]
+            else:
+                devices = [self.device] * n_devices
 
         def merge_shard(slices, shard_prof):
             # the same per-engine dispatch run() uses — one source of
@@ -593,7 +597,14 @@ class CompactionTask:
                 decoded_cells[s] = sum(len(x) for x in slices)
                 merged = None
                 if slices and not stop.is_set():
-                    merged = merge_shard(slices, shard_prof)
+                    if devices is not None:
+                        h = dmerge.submit_merge(
+                            slices, gc_before=gc_before, now=now,
+                            purgeable_ts_fn=controller.purgeable_ts_fn,
+                            device=devices[s % n_devices])
+                        merged = dmerge.collect_merge(h)
+                    else:
+                        merged = merge_shard(slices, shard_prof)
                 walls[s] = time.perf_counter() - t1
                 shard_prof["mesh_merge"] = walls[s]
                 # busy = decode + merge, throttle sleeps excluded: the
@@ -927,8 +938,11 @@ class CompactionTask:
         pending: deque = deque()
 
         def collect_oldest():
-            from ..ops.device_write import collect_merge_resident
-            merged = collect_merge_resident(pending.popleft())
+            if wstate["resident"]:
+                from ..ops.device_write import collect_merge_resident
+                merged = collect_merge_resident(pending.popleft())
+            else:
+                merged = dmerge.collect_merge(pending.popleft())
             if len(merged):
                 wq.put(merged)
 
@@ -1088,11 +1102,18 @@ class CompactionTask:
                 if self.limiter is not None:
                     self.limiter.acquire(round_bytes)
                 if self.engine == "device":
-                    from ..ops.device_write import submit_merge_resident
-                    pending.append(submit_merge_resident(
-                        slices, gc_before=gc_before, now=now,
-                        purgeable_ts_fn=controller.purgeable_ts_fn,
-                        prof=prof, device=self.device))
+                    if wstate["resident"]:
+                        from ..ops.device_write import \
+                            submit_merge_resident
+                        pending.append(submit_merge_resident(
+                            slices, gc_before=gc_before, now=now,
+                            purgeable_ts_fn=controller.purgeable_ts_fn,
+                            prof=prof, device=self.device))
+                    else:
+                        pending.append(dmerge.submit_merge(
+                            slices, gc_before=gc_before, now=now,
+                            purgeable_ts_fn=controller.purgeable_ts_fn,
+                            prof=prof, device=self.device))
                     while len(pending) >= self.PIPELINE_DEPTH:
                         collect_oldest()
                 else:

@@ -28,6 +28,26 @@ void scan_add_exclusive(const int* in, int* out, long n, int* scratch,
 void scan_max_inclusive(const int* in, int* out, long n, int* scratch,
                         cudaStream_t stream);
 
+// Stable LSD radix sort of a permutation (sort.cu), shared by the
+// round sort (K1) and the plane programs (K6, K7). A key is one column
+// read through the permutation: `width` bytes per element (1, 2 or 4)
+// at p + row * stride elements, xor'd with `xmask` before its digits are
+// taken (a descending key flips at its own width: xmask = its max).
+// Each key costs `width` stable passes of 8-bit digits.
+struct SortKey {
+  const void* p;
+  int stride;
+  int width;
+  uint32_t xmask;
+};
+
+// Bytes of scratch radix_sort_perm needs for n rows.
+long radix_scratch_bytes(int n);
+// keys[0] is the LEAST significant; perm receives the permutation,
+// perm_tmp (int32[n]) is work space.
+void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
+                     int* perm_tmp, void* scratch, cudaStream_t stream);
+
 inline unsigned grid_for(long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }

@@ -25,6 +25,10 @@
 // a warp that share a digit, per-warp digit counts in shared memory
 // order the warps, and a running per-digit count carries the order
 // from one round to the next.
+//
+// The passes (`radix_sort_perm`) also serve the plane programs K6 and
+// K7 (planes.cu), whose keys are 1, 2 or 4 bytes wide: a key costs one
+// pass per byte, so K1's 32-bit keys keep their four passes each.
 #include "common.cuh"
 
 namespace ctpu {
@@ -41,15 +45,22 @@ __global__ void iota(int* p, int n) {
   if (i < n) p[i] = i;
 }
 
-__device__ __forceinline__ int digit_of(const uint32_t* key, int stride,
-                                        uint32_t xmask, int shift, int p) {
-  const uint32_t k = key[(long)p * stride] ^ xmask;
-  return (int)((k >> shift) & (RADIX - 1));
+__device__ __forceinline__ int digit_of(const SortKey& k, int shift,
+                                        int p) {
+  const long at = (long)p * k.stride;
+  uint32_t v;
+  if (k.width == 4)
+    v = static_cast<const uint32_t*>(k.p)[at];
+  else if (k.width == 2)
+    v = static_cast<const uint16_t*>(k.p)[at];
+  else
+    v = static_cast<const uint8_t*>(k.p)[at];
+  return (int)(((v ^ k.xmask) >> shift) & (RADIX - 1));
 }
 
 __global__ void __launch_bounds__(SORT_THREADS)
-digit_hist(const uint32_t* key, int stride, uint32_t xmask, int shift,
-           const int* perm, int n, int tiles, int* hist) {
+digit_hist(SortKey key, int shift, const int* perm, int n, int tiles,
+           int* hist) {
   __shared__ int h[RADIX];
   const int tid = threadIdx.x;
   h[tid] = 0;
@@ -57,16 +68,15 @@ digit_hist(const uint32_t* key, int stride, uint32_t xmask, int shift,
   const int base = blockIdx.x * SORT_TILE;
   for (int r = 0; r < SORT_ROUNDS; ++r) {
     const int i = base + r * SORT_THREADS + tid;
-    if (i < n) atomicAdd(&h[digit_of(key, stride, xmask, shift, perm[i])], 1);
+    if (i < n) atomicAdd(&h[digit_of(key, shift, perm[i])], 1);
   }
   __syncthreads();
   hist[tid * tiles + blockIdx.x] = h[tid];
 }
 
 __global__ void __launch_bounds__(SORT_THREADS)
-digit_scatter(const uint32_t* key, int stride, uint32_t xmask, int shift,
-              const int* perm_in, int* perm_out, int n, int tiles,
-              const int* offs) {
+digit_scatter(SortKey key, int shift, const int* perm_in, int* perm_out,
+              int n, int tiles, const int* offs) {
   __shared__ int run[RADIX];
   __shared__ int wcnt[SORT_WARPS][RADIX];
   const int tid = threadIdx.x;
@@ -83,7 +93,7 @@ digit_scatter(const uint32_t* key, int stride, uint32_t xmask, int shift,
     const bool valid = i < n;
     const int p = valid ? perm_in[i] : 0;
     // out-of-range lanes take digit RADIX: they match only each other
-    const int d = valid ? digit_of(key, stride, xmask, shift, p) : RADIX;
+    const int d = valid ? digit_of(key, shift, p) : RADIX;
     const unsigned peers = __match_any_sync(0xffffffffu, d);
     const int rank = __popc(peers & lt_mask);
     if (valid && lane == __ffs(peers) - 1) wcnt[w][d] = __popc(peers);
@@ -102,21 +112,46 @@ digit_scatter(const uint32_t* key, int stride, uint32_t xmask, int shift,
   }
 }
 
-struct Key {
-  const uint32_t* p;
-  int stride;
-  uint32_t xmask;
-};
-
 }  // namespace
+
+long radix_scratch_bytes(int n) {
+  const long tiles = (n + SORT_TILE - 1) / SORT_TILE;
+  const long hist = (long)RADIX * tiles;
+  return (hist + scan_scratch_elems(hist)) * (long)sizeof(int);
+}
+
+void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
+                     int* perm_tmp, void* scratch, cudaStream_t s) {
+  const int tiles = (n + SORT_TILE - 1) / SORT_TILE;
+  int* hist = (int*)scratch;
+  int* scan_scr = hist + (long)RADIX * tiles;
+  iota<<<grid_for(n, 256), 256, 0, s>>>(perm, n);
+  int* a = perm;
+  int* b = perm_tmp;
+  for (int q = 0; q < nk; ++q) {
+    for (int shift = 0; shift < 8 * keys[q].width; shift += 8) {
+      digit_hist<<<tiles, SORT_THREADS, 0, s>>>(keys[q], shift, a, n, tiles,
+                                                hist);
+      scan_add_exclusive(hist, hist, (long)RADIX * tiles, scan_scr, s);
+      digit_scatter<<<tiles, SORT_THREADS, 0, s>>>(keys[q], shift, a, b, n,
+                                                   tiles, hist);
+      int* t = a;
+      a = b;
+      b = t;
+    }
+  }
+  // an odd number of passes leaves the result in perm_tmp
+  if (a != perm)
+    cudaMemcpyAsync(perm, a, (size_t)n * sizeof(int),
+                    cudaMemcpyDeviceToDevice, s);
+}
+
 }  // namespace ctpu
 
 using namespace ctpu;
 
 extern "C" long ctpu_sort_scratch_bytes(int n) {
-  const long tiles = (n + SORT_TILE - 1) / SORT_TILE;
-  const long hist = (long)RADIX * tiles;
-  return (hist + scan_scratch_elems(hist)) * (long)sizeof(int);
+  return radix_scratch_bytes(n);
 }
 
 // perm (int32[n]) receives the permutation; perm_tmp (int32[n]) and
@@ -125,34 +160,15 @@ extern "C" int ctpu_sort_perm(const uint32_t* lanes, int K,
                               const uint32_t* valid, const uint32_t* ts_h,
                               const uint32_t* ts_l, int n, int* perm,
                               int* perm_tmp, void* scratch, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = (n + SORT_TILE - 1) / SORT_TILE;
-  int* hist = (int*)scratch;
-  int* scan_scr = hist + (long)RADIX * tiles;
-  iota<<<grid_for(n, 256), 256, 0, s>>>(perm, n);
   // least significant key first: ~ts_l, ~ts_h, lanes[K-1..0], valid
-  Key keys[3 + 64];
+  SortKey keys[3 + 64];
   int nk = 0;
-  keys[nk++] = {ts_l, 1, 0xffffffffu};
-  keys[nk++] = {ts_h, 1, 0xffffffffu};
-  for (int k = K - 1; k >= 0; --k) keys[nk++] = {lanes + k, K, 0u};
-  keys[nk++] = {valid, 1, 0u};
-  int* a = perm;
-  int* b = perm_tmp;
-  for (int q = 0; q < nk; ++q) {
-    for (int shift = 0; shift < 32; shift += 8) {
-      digit_hist<<<tiles, SORT_THREADS, 0, s>>>(keys[q].p, keys[q].stride,
-                                                keys[q].xmask, shift, a, n,
-                                                tiles, hist);
-      scan_add_exclusive(hist, hist, (long)RADIX * tiles, scan_scr, s);
-      digit_scatter<<<tiles, SORT_THREADS, 0, s>>>(
-          keys[q].p, keys[q].stride, keys[q].xmask, shift, a, b, n, tiles,
-          hist);
-      int* t = a;
-      a = b;
-      b = t;
-    }
-  }
-  // 4 * (K + 3) passes is even: the result is back in `perm`
+  keys[nk++] = {ts_l, 1, 4, 0xffffffffu};
+  keys[nk++] = {ts_h, 1, 4, 0xffffffffu};
+  for (int k = K - 1; k >= 0; --k) keys[nk++] = {lanes + k, K, 4, 0u};
+  keys[nk++] = {valid, 1, 4, 0u};
+  // 4 * (K + 3) passes: an even count, the result lands in `perm`
+  radix_sort_perm(keys, nk, n, perm, perm_tmp, scratch,
+                  (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

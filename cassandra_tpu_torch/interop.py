@@ -1,6 +1,6 @@
 """Carry state across from the JAX package (cassandra_tpu) to the port.
 
-Nothing here imports the JAX package: both functions read plain numpy
+Nothing here imports the JAX package: the functions read plain numpy
 columns, so the caller (a test, a migration script) hands over whatever
 the other package produced. The on-disk sstable format is shared, so
 sstables need no conversion: the port's SSTableReader opens a directory
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .ops.merge import operands_to_device
+from .ops.merge import operands_to_device, planes_to_device
 from .storage.cellbatch import CellBatch
 
 CELLBATCH_COLUMNS = ("lanes", "ts", "ldt", "ttl", "flags", "off",
@@ -35,3 +35,15 @@ def operands_from_numpy(operands: dict, device) -> dict:
     int32 tensors on `device`."""
     return operands_to_device({k: np.asarray(v) for k, v in operands.items()},
                               device)
+
+
+def planes_from_numpy(planes_or_buf, device):
+    """A non-resident round's device input as the JAX package's packers
+    make it (`_plane_pack_v2`'s plane dict, `_plane_pack_fast`'s u8
+    buffer; JAX arrays pass through np.asarray first) as the port's
+    tensors on `device`, ready for `plane_program` (K7) or
+    `plane_program_fast` (K6)."""
+    if isinstance(planes_or_buf, dict):
+        return planes_to_device({k: np.asarray(v)
+                                 for k, v in planes_or_buf.items()}, device)
+    return planes_to_device(np.asarray(planes_or_buf), device)

@@ -12,8 +12,8 @@ that launches the kernel, never for a call that runs the plain PyTorch
 version), so a run can show that its main path went through the
 kernels: `reset_launches()` before, `launches()` after.
 `launch_sizes()` splits each count by the launch's size (the padded
-round N for K1-K3, the segment's cells for K4), so a check can cover
-every shape the path launched.
+round N for K1-K3, K6 and K7, the segment's cells for K4 and K5), so
+a check can cover every shape the path launched.
 """
 from __future__ import annotations
 
@@ -27,13 +27,15 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("scan.cu", "sort.cu", "reconcile.cu", "compact.cu", "meta.cu")
+SOURCES = ("scan.cu", "sort.cu", "reconcile.cu", "compact.cu", "meta.cu",
+           "lzscan.cu", "planes.cu")
 HEADERS = ("common.cuh",)
 LIB = os.path.join(BUILD_DIR, "libctpu_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 KERNELS = ("merge.sort_perm", "merge.reconcile", "write.compact_gather",
-           "write.meta_block")
+           "write.meta_block", "write.segment_scan",
+           "merge.plane_fast", "merge.plane_v2")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCH_SIZES: dict[str, dict[int, int]] = {k: {} for k in KERNELS}
 _count_lock = threading.Lock()
@@ -148,6 +150,7 @@ def build(force: bool = False) -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
+_U = ctypes.c_uint32
 
 _SIGNATURES = {
     "ctpu_sort_scratch_bytes": (_L, [_I]),
@@ -159,6 +162,12 @@ _SIGNATURES = {
     "ctpu_compact_gather": (_I, [_P, _P, _I, _I] + [_P] * 8
                             + [_P, _P] + [_P] * 8 + [_P, _P]),
     "ctpu_meta_block": (_I, [_P] * 7 + [_I, _I, _P, _P, _P]),
+    "ctpu_lzscan_scratch_bytes": (_L, [_L]),
+    "ctpu_segment_scan": (_I, [_P, _I, _P, _I, _I] + [_P] * 8),
+    "ctpu_planes_scratch_bytes": (_L, [_I]),
+    "ctpu_plane_fast": (_I, [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]),
+    "ctpu_plane_v2": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _U, _P, _U, _I,
+                           _P, _P, _P, _P, _P]),
 }
 
 
@@ -183,6 +192,16 @@ def check(rc: int, name: str) -> None:
     """Raise when a C entry reported a CUDA error (cudaGetLastError)."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
+
+
+def is_cuda(t) -> bool:
+    """True when tensor `t` lives on a CUDA device (launch the kernel),
+    False on the CPU (run the plain version); raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device!s}")
 
 
 def stream_of(t) -> int:

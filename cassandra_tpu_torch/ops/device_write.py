@@ -22,11 +22,15 @@ cannot reproduce exactly are materialized on the host per round —
     full values, `merge.host_tiebreak`),
   * kept expired-TTL cells (tombstone conversion rewrites flags AND
     drops the value bytes),
-  * range-tombstone bounds (host-only reconcile, as in the JAX package).
+  * range-tombstone bounds (host-only reconcile, as in the JAX package),
+  * counter rounds (the plane program K7 through `merge.submit_merge`,
+    then the host's counter summation).
 
-Counter rounds need the plane program K7, which is not ported yet: they
-raise NotImplementedError, as does the device LZ4 scan (K5) when the
-writer's device-compress gate is on (ROADMAP queue 2).
+When the writer's device-compress gate is on, each full segment also
+runs the LZ4 policy scan on the card (K5, ops/device_compress.py
+`segment_scan`) over the META block K4 left there and the segment's
+lanes; the host pulls the byte planes and the match arrays and only
+emits the LZ4 sequences (`pack_device_segment`).
 
 `submit_merge_resident` only launches; `collect_merge_resident`
 synchronises through one small copy of the three counts.
@@ -41,14 +45,11 @@ from ..service.profiling import GLOBAL as _kprof
 from ..storage.cellbatch import (DEATH_FLAGS, FLAG_COUNTER,
                                  FLAG_RANGE_BOUND, CellBatch)
 from . import cuda_lib
+from . import device_compress
 from . import merge as dmerge
 
 _BIAS_H = 0x80000000  # high u32 word of the 2^63 timestamp bias
 _SIGN64 = -(1 << 63)   # int64 with only the sign bit set
-
-_K5_MSG = ("device block compression (K5, the LZ4 policy scan) is not "
-           "ported to the CUDA package yet (ROADMAP queue 2, K5); run "
-           "the device engine with device_compress=False")
 
 
 # ------------------------------------------------------------- operands --
@@ -91,6 +92,8 @@ def build_resident_operands(cat: CellBatch, gc_before: int, now: int,
 
 RESIDENT_COLS = ("lanes", "ts_h", "ts_l", "ldt", "ttl", "flags8",
                  "fl", "vr")
+# a segment's three block streams, in stored order (metric names)
+PACK_BLOCKS = ("meta", "lanes", "payload")
 
 
 # --------------------------------------------------- K3: compact + gather --
@@ -244,6 +247,21 @@ def _u32_np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 
 
+def _pull(tensors: list) -> list:
+    """Device tensors as host numpy arrays. From a card they copy into
+    pinned buffers behind the kernels on the current stream, then one
+    synchronize."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.numpy() for t in tensors]
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+             for t in tensors]
+    for h, t in zip(hosts, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in hosts]
+
+
 # --------------------------------------------------------------- rounds --
 
 class DeviceRound:
@@ -278,8 +296,9 @@ def submit_merge_resident(batches: list[CellBatch], gc_before: int = 0,
                           prof: dict | None = None,
                           device=None) -> ResidentHandle:
     """Launch one device-resident round (returns without waiting for
-    the device). Range-bound rounds go through `merge.submit_merge`
-    (host); counter rounds and oversized frames need K6/K7 and raise.
+    the device). Range-bound rounds, counter rounds and oversized frames
+    go through `merge.submit_merge` (the host for range bounds, the
+    plane programs K6/K7 otherwise).
     device: where the round runs (default `cuda`; `cpu` runs the plain
     versions)."""
     import time as _time
@@ -516,9 +535,9 @@ class DeviceWriteLane:
         self.cols = {k: self.cols[k][n:] for k in RESIDENT_COLS}
         self.pending -= n
         lanes_np = np.ascontiguousarray(_u32_np(seg["lanes"]))
+        dc_state = None
+        dc_compress_s = 0.0
         if n == self.seg_cells:
-            if w._device_compress_now():
-                raise NotImplementedError(_K5_MSG)
             # full segment: K4 serializes + reduces stats on the device;
             # the host sees finished bytes
             meta_d, st = meta_block_kernel(
@@ -529,6 +548,23 @@ class DeviceWriteLane:
             stats = meta_stats(st)
             _kprof.record_execute("write.meta_block",
                                   _time.perf_counter() - t_k)
+            if w._device_compress_now():
+                # K5: lane shuffle + order check + the policy match scans
+                # on the card; the host keeps only the LZ4 wire emission
+                # (O(sequences)) and the pwrite pump
+                t_c = _time.perf_counter()
+                planes_d, mbl, mbd, lbl, lbd, ok_d = \
+                    device_compress.segment_scan(meta_d, seg["lanes"])
+                t_e = _time.perf_counter()
+                ok, planes_np, mbl, mbd, lbl, lbd = _pull(
+                    [ok_d.reshape(1), planes_d, mbl, mbd, lbl, lbd])
+                t_d = _time.perf_counter()
+                _kprof.record_execute("write.segment_scan", t_d - t_e)
+                w._acct("scan_d2h", t_d - t_e)
+                if not bool(ok[0]):
+                    raise ValueError("appended cells out of order")
+                dc_state = (planes_np, ((mbl, mbd), (lbl, lbd)))
+                dc_compress_s = t_d - t_c
         else:
             # final partial segment: host assembly through the one
             # shared META builder (byte-identical layout by definition)
@@ -547,6 +583,33 @@ class DeviceWriteLane:
                      int(ldt.min()), int(ldt.max()),
                      int(((flags & DEATH_FLAGS) != 0).sum()))
         payload_np = self._take_payload(n)
-        w._acct("serialize", _time.perf_counter() - t0)
+        w._acct("serialize", _time.perf_counter() - t0 - dc_compress_s)
+        if dc_compress_s:
+            w._acct("compress", dc_compress_s)
+        device_pack = None
+        if dc_state is not None:
+            planes_np, scans = dc_state
+
+            def device_pack(attempt, maxlen, _m=meta, _p=planes_np,
+                            _s=scans, _pl=payload_np):
+                # LZ4 emission of META and planes from the device scans
+                # (+ the host scan of the payload block when attempted);
+                # the writer's metrics count the attempted and the
+                # compressed blocks of each stream
+                t_p = _time.perf_counter()
+                out = device_compress.pack_device_segment(
+                    _m, _p, _s, _pl, attempt, maxlen,
+                    acct=lambda k, dt: w._acct(f"device_pack.{k}", dt))
+                w._acct("device_pack", _time.perf_counter() - t_p)
+                if w._metrics is not None:
+                    raws = (_m.size, _p.size, _pl.size)
+                    for name, att, stored, raw in zip(
+                            PACK_BLOCKS, attempt, out[1], raws):
+                        if att:
+                            w._metrics.incr(f"device_pack.tried.{name}")
+                            if stored < raw:
+                                w._metrics.incr(
+                                    f"device_pack.compressed.{name}")
+                return out
         w._emit_segment(n, meta, lanes_np, payload_np, self.pk_map,
-                        stats, device_pack=None)
+                        stats, device_pack=device_pack)

@@ -1115,9 +1115,8 @@ class SSTableWriter:
         blocks ALREADY policy-compressed on-device
         (ops/device_compress.pack_device_segment). Called after the
         skip-machine attempt decision so device and host legs consume
-        identical attempt vectors; any failure falls back to the host
-        compress leg for THIS segment (counted, never fatal, bytes
-        identical)."""
+        identical attempt vectors; a failure raises (the compaction
+        fails through its normal unwind; nothing falls back)."""
         # cross-segment ordering guard; the intra-segment check runs
         # inside segment_pack's delta loop (fast path) or the numpy
         # comparison below (fallback path)
@@ -1189,14 +1188,9 @@ class SSTableWriter:
             need = sum(b.nbytes for b in blocks)
             packed = None
             if device_pack is not None:
-                try:
-                    packed = device_pack(attempt, maxlen)
-                except Exception:
-                    # per-segment fallback: the host leg compresses this
-                    # one; output bytes identical (same policy encoder)
-                    if self._metrics is not None:
-                        self._metrics.incr("device_compress_fallback")
-                    packed = None
+                # a failure of the device leg propagates: no host
+                # fallback hides it
+                packed = device_pack(attempt, maxlen)
             if packed is not None and self._cpool is not None:
                 self._submit_packed(blocks, attempt, need, n,
                                     lane_head, lane_tail, packed, t_pack)

@@ -11,32 +11,46 @@ result line:
   2. build    the kernel library from cassandra_tpu_torch/csrc with nvcc
               (one process per source, in parallel); prints the
               `-Xptxas -v` summary.
-  3. kernels  each kernel (K1 sort, K2 reconcile, K3 kept-first gather,
-              K4 META serialize) against its plain PyTorch version on the
-              card, at the main path's planned shapes (a round of 491,520
-              cells padded to 524,288 with K = 13 lanes, holding every
-              K2 mask bit; a 65,536-cell segment), exact equality
-              required; warm times from CUDA events.
-  4. e2e      the main path: input sstables in bench.py's `stcs` shape
-              (4 runs, 4,096 partitions, clustering 1..9,999, 64 B random
-              blob values, ts in [1, 2^40), LZ4 16 KiB), compacted by
-              CompactionTask(engine="native") and by
-              CompactionTask(engine="device", device_compress=False) on
-              `cuda`. The launch counters (reset just before the device
-              leg, read just after) must show every kernel; the output
-              sstables' component sha256s must be equal; the output is
-              read back and its cell count checked. The counters also
+  3. kernels  each kernel against its plain PyTorch version on the card,
+              exact equality, warm times from CUDA events, at the main
+              paths' planned shapes: K1 sort, K2 reconcile, K3 kept-first
+              gather on a round of 491,520 cells padded to 524,288 with
+              K = 13 lanes (holding every K2 mask bit); K4 META serialize
+              and K5 LZ4 match scan on a 65,536-cell segment (K5 also on
+              an unsorted copy, whose order check must fail; its LZ4
+              blocks must equal the native encoder's; its D2H and the
+              host emission are timed on their own); K6 and K7, the plane
+              programs, on synthetic v3 / v2 rounds padded to 524,288 and
+              786,432 (the K7 round holds partition, row and complex
+              deletions, equal stamps and padding, and must give keep,
+              ambiguous and shadowed rows).
+  4. e2e      the main paths, on input sstables in bench.py's `stcs`
+              shape (4 runs, 4,096 partitions, clustering 1..9,999, 64 B
+              random blob values, ts in [1, 2^40), LZ4 16 KiB): the native
+              engine, then CompactionTask(engine="device") on `cuda` with
+              device_compress=False (K1-K4), with the knob at its default
+              (K1-K5, one K5 per full segment) and with
+              device_resident=False (K6 per round), the mesh mode with two
+              lanes on the one card (K6), and, beside its own native leg,
+              device_resident=False on the same runs plus a fifth run of
+              deletions (2% cell tombstones, row and partition deletions;
+              K7 on every round holding a deletion). The launch counters
+              are reset just before each leg and read just after; each
+              device leg's output sstables must be sha256-equal to its
+              input's native leg over every component, and every output
+              is read back and its cell count checked. The counters also
               split the launches by size (padded round N, segment cells).
-  5. shapes   phase 3 again at every size the main path launched that
+  5. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
               its partition's end pads to 2^20).
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
-kernel: route, source, the JAX function it replaces, launches on the
-main path, max_abs_err, warm ms, plain ms, bound ms and what bounds it,
-and the time of one PyTorch call that computes the same function where
-there is one, at the size launched most, then the same per launched
-size under "shapes") and the card's name and power limit. The last line is
+kernel: route, source, the JAX function it replaces, launches over the
+main paths and per leg, max_abs_err, warm ms, plain ms, bound ms and
+what bounds it, and the time of one PyTorch call that computes the same
+function where there is one, at the size launched most, then the same
+per launched size under "shapes") and the card's name and power limit.
+The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -56,10 +70,13 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+OPS_PER_S = 67e12                  # H100 SXM non-tensor rate (data sheet)
 ROUND_CELLS = (1 << 19) - (1 << 15)  # CompactionTask.ROUND_CELLS_DEVICE
 ROUND_PAD = 1 << 19                  # merge._bucket(ROUND_CELLS)
 LANES = 13                           # int pk + int ck table
 SEGMENT = 65_536                     # storage/sstable/format.py
+# merge._plane_pad of a device round: 2^19, or 3 x 2^18 past it
+PLANE_PADS = (1 << 19, 3 << 18)
 STCS_RUNS = 4
 STCS_CELLS_PER_RUN = 2_500_000       # BASELINE.json config 1: n = 10M
 STCS_PARTITIONS = 4096
@@ -179,6 +196,99 @@ def make_segment(seed: int, n: int) -> tuple:
     return ts, cols
 
 
+def make_lanes(seed: int, n: int, K: int = LANES,
+               partitions: int = STCS_PARTITIONS) -> np.ndarray:
+    """A sorted, stcs-like slice of n lane rows (u32[n, K]): partitions
+    in token order, clustering 1..9,999 ascending inside each, one
+    regular column; the zero lanes and the zero high bytes of the
+    clustering lane make whole constant byte planes (K5's long runs)."""
+    rng = np.random.default_rng(seed)
+    part = rng.integers(0, partitions, n)
+    ck = rng.integers(1, 10_000, n)
+    order = np.lexsort((ck, part))
+    part, ck = part[order].astype(np.uint64), ck[order]
+    lanes = np.zeros((n, K), dtype=np.uint32)
+    lanes[:, 0] = (part * np.uint64(1_000_003)).astype(np.uint32)
+    for k in range(1, 4):
+        lanes[:, k] = ((part * np.uint64(2654435761 + 40503 * k))
+                       >> np.uint64(7)).astype(np.uint32)
+    lanes[:, 4] = ck
+    lanes[:, K - 3] = 8
+    return lanes
+
+
+def make_scan_segment(seed: int, n: int) -> tuple:
+    """K5's inputs for one full segment of n cells: the META block of
+    make_segment's columns (host build_meta_block, which K4 equals) and
+    make_lanes' sorted lane rows."""
+    from cassandra_tpu_torch.storage.sstable.writer import build_meta_block
+    ts, c = make_segment(seed, n)
+    meta = build_meta_block(ts, c[2], c[3], c[4], c[5].astype("<u4"),
+                            c[6].astype("<u4"))
+    return np.asarray(meta, dtype=np.uint8), make_lanes(seed, n)
+
+
+def make_fast_round(seed: int, n: int, N: int, k: int = 4,
+                    partitions: int = STCS_PARTITIONS) -> tuple:
+    """A v3 (K6) round of n cells padded to N, as the host packer lays it
+    out: planes rank u16 (padding 0xFFFF), a u16 clustering lane, a u8
+    path lane and one u32 truncated-stamp plane, then the int32 offsets
+    of k runs. Few clustering values and tied stamps make duplicate
+    identities (ambiguous rows). Returns (buf u8, cfg)."""
+    rng = np.random.default_rng(seed)
+
+    def plane(vals, dtype, fill):
+        a = np.full(N, fill, dtype=dtype)
+        a[:n] = vals
+        return a
+
+    q = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    ties = rng.random(n) < 0.3
+    q[ties] = rng.integers(0, 4, int(ties.sum()))
+    parts = [plane(rng.integers(0, partitions, n), np.uint16, 0xFFFF),
+             plane(rng.integers(0, 64, n), np.uint16, 0),
+             plane(rng.integers(0, 2, n), np.uint8, 0),
+             plane(q.astype(np.uint32), np.uint32, 0)]
+    cuts = np.sort(rng.integers(0, n + 1, k - 1))
+    offs = np.concatenate([[0], cuts, [n]]).astype("<i4")
+    buf = np.concatenate([p.view(np.uint8) for p in parts]
+                         + [offs.view(np.uint8)])
+    return buf, ("uint16", ("uint16", "uint8"), ("uint32",), k)
+
+
+def make_v2_round(seed: int, n: int, N: int,
+                  partitions: int = STCS_PARTITIONS) -> tuple:
+    """A v2 (K7) round of n cells padded to N, as the host packer lays it
+    out: rank u32, a row lane and the column lane (0 = partition
+    deletion, 1 = row deletion, else a regular column), ts_lo u32 and
+    ts_mid u16 with equal-stamp duplicates, complex-deletion flags, and
+    padding rows (rank and lanes 0xFFFFFFFF, stamps 0). Returns
+    (planes, cfg)."""
+    rng = np.random.default_rng(seed)
+
+    def plane(vals, dtype, fill):
+        a = np.full(N, fill, dtype=dtype)
+        a[:n] = vals
+        return a
+
+    col = rng.choice(np.array([0, 1, 8, 9], np.uint32), n,
+                     p=[0.02, 0.03, 0.75, 0.20])
+    row = rng.integers(0, 16, n).astype(np.uint32)
+    row[col == 0] = 0                 # a partition deletion has no row
+    ts = rng.integers(0, 1 << 20, n)
+    ties = rng.random(n) < 0.3
+    ts[ties] = rng.integers(1000, 1004, int(ties.sum()))
+    planes = {
+        "rank": plane(rng.integers(0, partitions, n), np.uint32, 0xFFFFFFFF),
+        "lane0": plane(row, np.uint32, 0xFFFFFFFF),
+        "lane1": plane(col, np.uint32, 0xFFFFFFFF),
+        "ts_lo": plane(ts, np.uint32, 0),
+        "ts_mid": plane(rng.integers(0, 2, n), np.uint16, 0),
+        "cdel": plane(rng.random(n) < 0.02, np.uint8, 0),
+        "hi_const": np.uint32(0x8000), "col_const": np.uint32(0)}
+    return planes, (1, 1, 0, False, True)
+
+
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     """Warm mean milliseconds per call from CUDA events."""
     for _ in range(warm):
@@ -201,8 +311,31 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def bound_ms(nbytes: float) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float = 0.0) -> float:
+    """The least time for the work: bytes moved once at the memory rate
+    or operations at the non-tensor rate, whichever is longer."""
+    return max(nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3
+
+
+def bound_by(r: dict) -> str:
+    return ("operations" if r.get("ops", 0.0) / OPS_PER_S
+            > r["bytes"] / HBM_BYTES_PER_S else "bytes")
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean host milliseconds per call (fn synchronizes itself)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def lex_rank_key(cols: list) -> torch.Tensor:
+    """An int64 key whose stable sort equals the LSD chain over `cols`
+    (most significant first): the tuple's dense lexicographic rank."""
+    return torch.unique(torch.stack(cols, dim=1), dim=0,
+                        return_inverse=True)[1]
 
 
 def packed_sort_key(ops: dict) -> torch.Tensor | None:
@@ -338,9 +471,138 @@ def check_segment(seed: int, seg_n: int, res: dict) -> None:
            library_ms=None, bytes=seg_n * 50 + 40)
 
 
+def check_scan(seed: int, seg_n: int, res: dict) -> None:
+    """K5 against its plain version on one full segment (make_segment's
+    META block, a sorted stcs-like lane slice) and on an unsorted copy,
+    exact equality; the emitted LZ4 blocks against the native encoder;
+    the D2H of the results and the host emission timed on their own."""
+    from cassandra_tpu_torch.ops import device_compress as dc
+    from cassandra_tpu_torch.ops.codec import get_compressor
+    from cassandra_tpu_torch.ops.device_write import _pull
+
+    dev = torch.device(DEVICE)
+    meta_np, lanes_np = make_scan_segment(seed + 2, seg_n)
+    meta = torch.from_numpy(meta_np).to(dev)
+    err = 0
+    for rows, ok in ((lanes_np, True), (lanes_np[
+            [0, seg_n // 2] + list(range(2, seg_n // 2)) + [1]
+            + list(range(seg_n // 2 + 1, seg_n))], False)):
+        lanes = torch.from_numpy(np.ascontiguousarray(rows).view(
+            np.int32)).to(dev)
+        out = dc.segment_scan(meta, lanes)
+        ref = dc.segment_scan_plain(meta, lanes)
+        torch.cuda.synchronize()
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(out[:5],
+                                                          ref[:5])))
+        need(bool(out[5]) is ok and bool(ref[5]) is ok,
+             f"K5 order check: want order_ok={ok}")
+    need(err == 0, f"K5 segment_scan at n={seg_n}: kernel != plain "
+                   f"(max abs err {err})")
+    lanes = torch.from_numpy(lanes_np.view(np.int32)).to(dev)
+    out = dc.segment_scan(meta, lanes)
+    pulled = lambda: _pull([out[5].reshape(1), *out[:5]])  # noqa: E731
+    _ok, planes, mbl, mbd, lbl, lbd = pulled()
+    longest = int(lbl.max())
+    need(longest >= 4 * seg_n, f"K5: the constant planes gave no long run "
+                               f"(longest {longest})")
+    t0 = time.perf_counter()
+    blocks = [dc.emit_block(b, bl, bd, b.size + b.size // 255 + 16)
+              for b, bl, bd in ((meta_np, mbl, mbd), (planes, lbl, lbd))]
+    emit_ms = (time.perf_counter() - t0) * 1e3
+    native = get_compressor("LZ4Compressor")
+    for blk, got in zip((meta_np, planes), blocks):
+        need(got == native.compress(blk.tobytes()),
+             "K5: emitted LZ4 block != the native encoder's")
+    n_scan = meta_np.size + planes.size
+    _entry(res, "K5", "write.segment_scan", seg_n, err=err,
+           ms=cuda_ms(lambda: dc.segment_scan(meta, lanes), reps=5),
+           plain_ms=cuda_ms(lambda: dc.segment_scan_plain(meta, lanes),
+                            reps=2, warm=1),
+           library_ms=None, d2h_ms=host_ms(pulled), emit_ms=emit_ms,
+           longest_run=longest,
+           sizes_lz4=[len(b) for b in blocks],
+           # read META + lanes, write planes + four int32 arrays; four
+           # operations per (position, distance): compare, min, run, max
+           bytes=meta_np.size + 2 * planes.size + 8 * n_scan,
+           ops=4 * len(dc.DISTANCES) * n_scan)
+
+
+def plane_cells_for(N: int) -> int:
+    """Live cells of the synthetic plane rounds checked at padded N."""
+    return N - N // 16
+
+
+def check_planes(seed: int, N: int, res: dict) -> None:
+    """K6 and K7 against their plain versions on synthetic rounds padded
+    to N, exact equality; the K7 round must hold keep, ambiguous and
+    shadowed rows."""
+    from cassandra_tpu_torch.ops import merge as dm
+
+    dev = torch.device(DEVICE)
+    n = plane_cells_for(N)
+    log_n = int(np.ceil(np.log2(N)))
+    buf, cfg = make_fast_round(seed + 3, n, N)
+    b = dm.planes_to_device(buf, dev)
+    out = dm.plane_program_fast(b, cfg)
+    ref = dm.plane_program_fast_plain(b, cfg)
+    torch.cuda.synchronize()
+    err = max_abs_err(out, ref)
+    need(err == 0, f"K6 plane_fast at N={N}: kernel != plain "
+                   f"(max abs err {err})")
+    bits = out[:n].to(torch.int64)
+    masks = {"keep": int(((bits >> 4) & 1).sum()),
+             "ambiguous": int(((bits >> 5) & 1).sum())}
+    for m, c in masks.items():
+        need(c > 0, f"the K6 round at N={N} has no {m} row")
+    w = [(0, 2), (2 * N, 2), (4 * N, 1), (5 * N, 4)]
+    cols = [torch.from_numpy(buf[o:o + N * k].view(
+        {1: np.uint8, 2: np.uint16, 4: np.uint32}[k]).astype(np.int64))
+        .to(dev) for o, k in w]
+    key = lex_rank_key(cols)
+    _entry(res, "K6", "merge.plane_fast", N, err=err, masks=masks,
+           ms=cuda_ms(lambda: dm.plane_program_fast(b, cfg)),
+           plain_ms=cuda_ms(lambda: dm.plane_program_fast_plain(b, cfg),
+                            reps=3),
+           library_ms=cuda_ms(lambda: torch.sort(key, stable=True)),
+           bytes=buf.size + N, ops=N * log_n * (1 + 2 + 1))
+
+    planes, cfg2 = make_v2_round(seed + 4, n, N)
+    p = dm.planes_to_device(planes, dev)
+    out2 = dm.plane_program(p, cfg2)
+    ref2 = dm.plane_program_plain(p, cfg2)
+    torch.cuda.synchronize()
+    err2 = max_abs_err(out2, ref2)
+    need(err2 == 0, f"K7 plane_v2 at N={N}: kernel != plain "
+                    f"(max abs err {err2})")
+    m = out2[:n].to(torch.int64) >> 24
+    masks2 = {"keep": int((m & 1).sum()), "ambiguous": int((m >> 1 & 1).sum()),
+              "shadowed": int((m >> 3 & 1).sum())}
+    print(f"  plane rounds: {n} cells padded to {N}: K6 {masks}, "
+          f"K7 {masks2}", flush=True)
+    for k, c in masks2.items():
+        need(c > 0, f"the K7 round at N={N} has no {k} row")
+    i64 = lambda a: torch.from_numpy(a.astype(np.int64)).to(dev)  # noqa
+    key2 = lex_rank_key([i64(planes["rank"]), i64(planes["lane0"]),
+                         i64(planes["lane1"]), 0xFFFF - i64(planes["ts_mid"]),
+                         0xFFFFFFFF - i64(planes["ts_lo"])])
+    need(bool((torch.sort(key2, stable=True).indices.to(torch.int32)
+               == (out2 & 0xFFFFFF)).all()),
+         "K7: torch.sort of the packed key disagrees")
+    _entry(res, "K7", "merge.plane_v2", N, err=err2, masks=masks2,
+           ms=cuda_ms(lambda: dm.plane_program(p, cfg2)),
+           plain_ms=cuda_ms(lambda: dm.plane_program_plain(p, cfg2),
+                            reps=3),
+           library_ms=cuda_ms(lambda: torch.sort(key2, stable=True)),
+           bytes=sum(np.asarray(v).nbytes for v in planes.values()) + 4 * N,
+           ops=N * log_n * 5)
+
+
 ROUND_KERNELS = ("K1", "K2", "K3")
+PLANE_KERNELS = ("K6", "K7")
 KERNEL_NAMES = {"K1": "merge.sort_perm", "K2": "merge.reconcile",
-                "K3": "write.compact_gather", "K4": "write.meta_block"}
+                "K3": "write.compact_gather", "K4": "write.meta_block",
+                "K5": "write.segment_scan", "K6": "merge.plane_fast",
+                "K7": "merge.plane_v2"}
 
 
 def print_checks(res: dict, sizes: dict) -> None:
@@ -352,12 +614,20 @@ def print_checks(res: dict, sizes: dict) -> None:
             print(f"  {kid} {res[kid]['name']} at {size}: match (max abs "
                   f"err {r['err']}), kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-                  f"{bound_ms(r['bytes']):.4f} ms", flush=True)
+                  f"{bound_ms(r['bytes'], r.get('ops', 0)):.4f} ms "
+                  f"({bound_by(r)})", flush=True)
+            if kid == "K5":
+                print(f"  K5 D2H of planes + scans (pinned) "
+                      f"{r['d2h_ms']:.4f} ms, host emit_block of META + "
+                      f"planes {r['emit_ms']:.4f} ms, longest run "
+                      f"{r['longest_run']}, LZ4 bytes {r['sizes_lz4']}",
+                      flush=True)
 
 
 def phase_kernels(seed: int, sizes: dict, res: dict) -> None:
     """Check every (kernel, size) of `sizes` ({"K1": {N, ...}, ...})
-    not yet in `res`. K1-K3 share a round, so one size checks all three."""
+    not yet in `res`. K1-K3 share a round, so one size checks all three;
+    K6 and K7 are checked together."""
     todo = {kid: {s for s in sizes.get(kid, ())
                   if s not in res.get(kid, {}).get("shapes", {})}
             for kid in KERNEL_NAMES}
@@ -365,6 +635,10 @@ def phase_kernels(seed: int, sizes: dict, res: dict) -> None:
         check_round(seed, N, res)
     for seg_n in sorted(todo["K4"]):
         check_segment(seed, seg_n, res)
+    for seg_n in sorted(todo["K5"]):
+        check_scan(seed, seg_n, res)
+    for N in sorted(set().union(*(todo[k] for k in PLANE_KERNELS))):
+        check_planes(seed, N, res)
     print_checks(res, todo)
 
 
@@ -389,6 +663,7 @@ def build_stcs_inputs(directory: str, table, seed: int,
     from cassandra_tpu_torch.storage import cellbatch as cb
     from cassandra_tpu_torch.storage.sstable import (Descriptor,
                                                      SSTableWriter)
+    from cassandra_tpu_torch.storage.sstable.compress_pool import get_pool
     from cassandra_tpu_torch.tools import bulk
 
     rng = np.random.default_rng(seed)
@@ -400,8 +675,10 @@ def build_stcs_inputs(directory: str, table, seed: int,
         ts = rng.integers(1, 1 << 40, n).astype(np.int64)
         merged = cb.merge_sorted([bulk.build_int_batch(table, pk, ck,
                                                        vals, ts)])
+        # the compress pool writes the same bytes as a serial writer
         w = SSTableWriter(Descriptor(directory, gen), table,
-                          estimated_partitions=STCS_PARTITIONS)
+                          estimated_partitions=STCS_PARTITIONS,
+                          threaded_io=True, compress_pool=get_pool())
         w.append(merged)
         w.finish()
 
@@ -421,6 +698,15 @@ def _kernel_device_s() -> dict:
     return {k: v["device_s"] for k, v in GLOBAL.snapshot()["kernels"].items()}
 
 
+def _pack_counts() -> dict:
+    """The writer's device_pack counters: blocks tried and compressed,
+    per stream (meta, lanes, payload)."""
+    from cassandra_tpu_torch.service.metrics import GLOBAL
+    pre = "compaction.device_pack."
+    return {k[len(pre):]: v for k, v in GLOBAL.snapshot().items()
+            if k.startswith(pre)}
+
+
 def compact_leg(root: str, table, **task_kw) -> dict:
     from cassandra_tpu_torch.compaction.task import CompactionTask
     from cassandra_tpu_torch.storage.table import ColumnFamilyStore
@@ -431,10 +717,12 @@ def compact_leg(root: str, table, **task_kw) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dev0 = _kernel_device_s()
+    c0 = _pack_counts()
     t0 = time.perf_counter()
     stats = task.execute()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    c1 = _pack_counts()
     peak = torch.cuda.max_memory_allocated()
     dev1 = _kernel_device_s()
     kernel_s = {k: v - dev0.get(k, 0.0) for k, v in dev1.items()
@@ -449,10 +737,121 @@ def compact_leg(root: str, table, **task_kw) -> dict:
         r.close()
     return {"stats": stats, "wall": wall, "peak": peak, "hashes": hashes,
             "read_back": cells, "profile": dict(task.profile),
-            "kernel_s": kernel_s}
+            "kernel_s": kernel_s,
+            "pack_counts": {k: v - c0.get(k, 0) for k, v in c1.items()
+                            if v - c0.get(k, 0)}}
+
+
+def build_deletion_run(directory: str, table, seed: int, gen: int,
+                       cells: int) -> None:
+    """A run of deletions over the stcs partitions: `cells` cell
+    tombstones, a tenth as many row deletions and a few partition
+    deletions, stamped across the inputs' ts range (so they shadow some
+    cells and not others), written as generation `gen`."""
+    from cassandra_tpu_torch.storage import cellbatch as cb
+    from cassandra_tpu_torch.storage.sstable import (Descriptor,
+                                                     SSTableWriter)
+
+    rng = np.random.default_rng(seed + 5)
+    col = table.columns["v"].column_id
+    ldt = int(time.time())
+    pk = [table.serialize_partition_key([p])
+          for p in range(STCS_PARTITIONS)]
+    b = cb.CellBatchBuilder(table)
+    for p, c, ts in zip(rng.integers(0, STCS_PARTITIONS, cells).tolist(),
+                        rng.integers(1, 10_000, cells).tolist(),
+                        rng.integers(1, 1 << 40, cells).tolist()):
+        b.add_tombstone(pk[p], table.serialize_clustering([c]), col, ts, ldt)
+    for p, c, ts in zip(rng.integers(0, STCS_PARTITIONS,
+                                     cells // 10).tolist(),
+                        rng.integers(1, 10_000, cells // 10).tolist(),
+                        rng.integers(1, 1 << 40, cells // 10).tolist()):
+        b.add_row_deletion(pk[p], table.serialize_clustering([c]), ts, ldt)
+    for p in rng.choice(STCS_PARTITIONS, 16, replace=False).tolist():
+        b.add_partition_deletion(pk[p], int(rng.integers(1, 1 << 40)), ldt)
+    w = SSTableWriter(Descriptor(directory, gen), table,
+                      estimated_partitions=STCS_PARTITIONS)
+    w.append(cb.merge_sorted([b.seal()]))
+    w.finish()
+
+
+class RoundLog:
+    """Records, per non-resident round, whether it held a deletion and
+    which program `merge.submit_merge` chose (fast = K6, v2 = K7)."""
+
+    def __init__(self):
+        from cassandra_tpu_torch.ops import merge as dm
+        from cassandra_tpu_torch.storage.cellbatch import DEATH_FLAGS
+        self.rounds: list = []
+        self._dm, self._orig = dm, dm.submit_merge
+
+        def submit(batches, *a, **kw):
+            h = self._orig(batches, *a, **kw)
+            dead = any(bool((x.flags & DEATH_FLAGS).any()) for x in batches)
+            self.rounds.append((dead, h.mode))
+            return h
+
+        dm.submit_merge = submit
+
+    def close(self) -> None:
+        self._dm.submit_merge = self._orig
+
+
+# leg: (name, inputs, task options, kernels that must launch, kernels
+# that must not). "stcs" is the 4-run input, "stcs+del" that plus a run
+# of deletions. Every device leg is sha256-compared with its input's
+# native leg.
+LEGS = (
+    ("native", "stcs", {"engine": "native"}, (), ()),
+    ("device", "stcs", {"engine": "device", "device_compress": False},
+     ("K1", "K2", "K3", "K4"), ("K5", "K6", "K7")),
+    ("device-compress", "stcs", {"engine": "device"},
+     ("K1", "K2", "K3", "K4", "K5"), ("K6", "K7")),
+    ("non-resident", "stcs", {"engine": "device", "device_resident": False},
+     ("K6",), ("K1", "K4", "K5", "K7")),
+    ("mesh2", "stcs", {"engine": "device", "mesh_devices": 2},
+     ("K6",), ("K1", "K4", "K5", "K7")),
+    ("native", "stcs+del", {"engine": "native"}, (), ()),
+    ("non-resident", "stcs+del", {"engine": "device",
+                                  "device_resident": False},
+     ("K7",), ("K1", "K4", "K5")),
+)
+
+
+def print_leg(label: str, s: dict) -> None:
+    mib = s["stats"]["bytes_read"] / 2**20
+    print(f"  {label}: {s['stats']['cells_read']} -> "
+          f"{s['stats']['cells_written']} cells, wall {s['wall']:.3f} s, "
+          f"{mib / s['wall']:.2f} MiB/s, peak device memory "
+          f"{s['peak'] / 2**20:.1f} MiB", flush=True)
+    prof = s["profile"]
+    print("    phases (s, summed over threads): " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(prof.items())}))
+    if "scan_d2h" in prof or "device_pack" in prof:
+        print(f"    K5 wait + D2H {prof.get('scan_d2h', 0.0):.4f} s; "
+              f"device_pack {prof.get('device_pack', 0.0):.4f} s = LZ4 "
+              f"emission {prof.get('device_pack.emit', 0.0):.4f} s + "
+              f"host payload scans "
+              f"{prof.get('device_pack.payload_scan', 0.0):.4f} s "
+              f"(+ the rest)", flush=True)
+        c = s["pack_counts"]
+        print("    blocks tried / compressed per stream: " + ", ".join(
+            f"{b} {c.get('tried.' + b, 0)} / {c.get('compressed.' + b, 0)}"
+            for b in ("meta", "lanes", "payload")), flush=True)
+    busy = sum(s["kernel_s"].values())
+    print(f"    kernel device time {busy:.4f} s = "
+          f"{100 * busy / s['wall']:.2f}% of the wall: "
+          + json.dumps({k: round(v, 5)
+                        for k, v in sorted(s["kernel_s"].items())}),
+          flush=True)
+    if s.get("launches"):
+        print(f"    launches: {s['launches']}; by size: {s['sizes']}",
+              flush=True)
 
 
 def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
+    """Every leg of LEGS on fresh copies of its inputs; launch counters
+    reset just before each device leg and read just after."""
     from cassandra_tpu_torch.ops import cuda_lib
     from cassandra_tpu_torch.storage.table import ColumnFamilyStore
 
@@ -461,52 +860,89 @@ def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
             "cells_per_run": cells_per_run,
             "published": STCS_CELLS_PER_RUN, "runs": STCS_RUNS}}))
     table = stcs_table()
-    pristine = os.path.join(work, "pristine")
-    cfs = ColumnFamilyStore(table, pristine, commitlog=None)
+    inputs = {"stcs": os.path.join(work, "stcs")}
+    cfs = ColumnFamilyStore(table, inputs["stcs"], commitlog=None)
     t0 = time.perf_counter()
     build_stcs_inputs(cfs.directory, table, seed, cells_per_run)
-    print(f"e2e: built {STCS_RUNS} x {cells_per_run} cells in "
+    print(f"e2e: built stcs, {STCS_RUNS} x {cells_per_run} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    legs = {}
-    for leg, kw in (("native", {"engine": "native"}),
-                    ("device", {"engine": "device", "device": DEVICE,
-                                "device_compress": False})):
-        root = os.path.join(work, leg)
-        shutil.copytree(pristine, root)
-        if leg == "device":
-            cuda_lib.reset_launches()
-        legs[leg] = compact_leg(root, table, **kw)
-        if leg == "device":
-            legs[leg]["launches"] = cuda_lib.launches()
-            legs[leg]["sizes"] = cuda_lib.launch_sizes()
+    inputs["stcs+del"] = os.path.join(work, "stcs+del")
+    shutil.copytree(inputs["stcs"], inputs["stcs+del"])
+    dcfs = ColumnFamilyStore(table, inputs["stcs+del"], commitlog=None)
+    t0 = time.perf_counter()
+    n_del = STCS_RUNS * cells_per_run // 50
+    build_deletion_run(dcfs.directory, table, seed, STCS_RUNS + 1, n_del)
+    print(f"e2e: built a deletion run ({n_del} cell tombstones, "
+          f"{n_del // 10} row and 16 partition deletions) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    ids = {name: kid for kid, name in KERNEL_NAMES.items()}
+    legs, native = [], {}
+    for i, (name, src, kw, must, must_not) in enumerate(LEGS):
+        label = f"{name} [{src}]"
+        # a directory of its own: the chunk cache keys on (directory,
+        # generation, segment), and a reused path would serve an earlier
+        # leg's output for an input of the same generation
+        root = os.path.join(work, f"leg{i}")
+        shutil.copytree(inputs[src], root)
+        if kw["engine"] == "device":
+            kw = dict(kw, device=DEVICE)
+        log = RoundLog() if src.endswith("+del") else None
+        cuda_lib.reset_launches()
+        try:
+            leg = compact_leg(root, table, **kw)
+        finally:
+            if log is not None:
+                log.close()
         shutil.rmtree(root, ignore_errors=True)
-        s = legs[leg]
-        mib = s["stats"]["bytes_read"] / 2**20
-        print(f"  {leg}: {s['stats']['cells_read']} -> "
-              f"{s['stats']['cells_written']} cells, wall {s['wall']:.3f} s, "
-              f"{mib / s['wall']:.2f} MiB/s, peak device memory "
-              f"{s['peak'] / 2**20:.1f} MiB", flush=True)
-        busy = sum(s["kernel_s"].values())
-        print(f"    phases (s, summed over threads): " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(s["profile"].items())}))
-        print(f"    kernel device time {busy:.4f} s = "
-              f"{100 * busy / s['wall']:.2f}% of the wall: "
-              + json.dumps({k: round(v, 5)
-                            for k, v in sorted(s["kernel_s"].items())}),
-              flush=True)
-    launches = legs["device"]["launches"]
-    print(f"  launches on the main path: {launches}; by size: "
-          f"{legs['device']['sizes']}", flush=True)
-    for name, count in launches.items():
-        need(count > 0, f"kernel {name} was not launched on the main path")
-    need(legs["native"]["hashes"] == legs["device"]["hashes"],
-         "device engine output differs from the native engine's")
-    need(len(legs["device"]["hashes"]) >= len(COMPONENTS),
-         "no output sstable components found")
-    print(f"  sha256 equal over {len(legs['device']['hashes'])} components",
-          flush=True)
-    return {"launches": launches, "sizes": legs["device"]["sizes"],
-            "legs": legs}
+        launches = {ids[k]: v for k, v in cuda_lib.launches().items()
+                    if k in ids}
+        if kw["engine"] == "device":
+            leg["launches"] = launches
+            leg["sizes"] = {ids[k]: v for k, v in
+                            cuda_lib.launch_sizes().items() if k in ids and v}
+        leg.update(name=name, src=src)
+        print_leg(label, leg)
+        for kid in must:
+            need(launches[kid] > 0, f"{label}: {kid} ({KERNEL_NAMES[kid]}) "
+                                    "was not launched")
+        for kid in must_not:
+            need(launches[kid] == 0, f"{label}: {kid} launched "
+                                     f"{launches[kid]} times")
+        if name == "native":
+            native[src] = leg["hashes"]
+            need(len(leg["hashes"]) >= len(COMPONENTS),
+                 "no output sstable components found")
+        else:
+            need(leg["hashes"] == native[src],
+                 f"{label}: output differs from the native engine's")
+            print(f"    sha256 equal to native over {len(leg['hashes'])} "
+                  f"components", flush=True)
+        if name == "device-compress":
+            need(launches["K5"] == launches["K4"],
+                 f"K5 launched {launches['K5']} times for "
+                 f"{launches['K4']} full segments")
+        if name == "mesh2":
+            need("mesh_plan" in leg["profile"], "the mesh mode did not run")
+        if log is not None and name != "native":
+            dead = sum(d for d, _m in log.rounds)
+            need(all(m == "v2" for d, m in log.rounds if d),
+                 f"{label}: a round holding a deletion did not run K7")
+            need(launches["K7"] == dead and
+                 launches["K6"] == len(log.rounds) - dead,
+                 f"{label}: launches {launches} for {len(log.rounds)} "
+                 f"rounds, {dead} with deletions")
+            print(f"    rounds: {len(log.rounds)}, {dead} holding a "
+                  f"deletion; K6 launches {launches['K6']}, K7 launches "
+                  f"{launches['K7']}", flush=True)
+        legs.append(leg)
+    sizes: dict = {}
+    for leg in legs:
+        for kid, by in leg.get("sizes", {}).items():
+            for size, c in by.items():
+                sizes.setdefault(kid, {})
+                sizes[kid][size] = sizes[kid].get(size, 0) + c
+    return {"sizes": sizes, "legs": legs}
 
 
 # -------------------------------------------------------------- report --
@@ -520,6 +956,12 @@ SOURCES = {
            "cassandra_tpu/ops/device_write.py:94"),
     "K4": ("cassandra_tpu_torch/csrc/meta.cu",
            "cassandra_tpu/ops/device_write.py:122"),
+    "K5": ("cassandra_tpu_torch/csrc/lzscan.cu",
+           "cassandra_tpu/ops/device_compress.py:74"),
+    "K6": ("cassandra_tpu_torch/csrc/planes.cu",
+           "cassandra_tpu/ops/merge.py:607"),
+    "K7": ("cassandra_tpu_torch/csrc/planes.cu",
+           "cassandra_tpu/ops/merge.py:475"),
 }
 
 
@@ -527,35 +969,46 @@ LIBRARY_CALLS = {
     "K1": "torch.sort(stable=True) of an int64 key packed from the "
           "round's dense ranks (packing untimed)",
     "K3": "torch.nonzero + index_select (several calls)",
+    "K6": "torch.sort(stable=True) of an int64 key packed from the "
+          "round's dense lexicographic ranks (the sort part only; "
+          "packing untimed)",
+    "K7": "torch.sort(stable=True) of an int64 key packed from the "
+          "round's dense lexicographic ranks (the sort part only; "
+          "packing untimed)",
 }
 
 
-def kernels_line(res: dict, sizes: dict) -> dict:
-    """Per kernel: the numbers at the size the main path launched most,
-    max_abs_err over every size checked, and each launched size's own
-    numbers under "shapes"."""
+def kernels_line(res: dict, e2e: dict) -> dict:
+    """Per kernel: the numbers at the size the main paths launched most,
+    max_abs_err over every size checked, each launched size's own
+    numbers under "shapes", and the launches of each leg."""
     out = []
     for kid, r in sorted(res.items()):
         src, replaces = SOURCES[kid]
-        seen = sizes[r["name"]]
+        seen = e2e["sizes"].get(kid) or dict.fromkeys(r["shapes"], 0)
         shapes = []
         for size in sorted(seen):
             s = r["shapes"][size]
+            extra = {k: s[k] for k in ("masks", "d2h_ms", "emit_ms")
+                     if k in s}
             shapes.append({
                 "size": size, "launches": seen[size],
                 "max_abs_err": s["err"], "ms": s["ms"],
-                "plain_ms": s["plain_ms"], "bound_ms": bound_ms(s["bytes"]),
-                "library_ms": s["library_ms"],
-                **({"masks": s["masks"]} if "masks" in s else {})})
+                "plain_ms": s["plain_ms"],
+                "bound_ms": bound_ms(s["bytes"], s.get("ops", 0.0)),
+                "bound_by": bound_by(s), "library_ms": s["library_ms"],
+                **extra})
         top = max(shapes, key=lambda e: (e["launches"], e["size"]))
         out.append({
             "name": r["name"], "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(seen.values()),
             "max_abs_err": max(s["err"] for s in r["shapes"].values()),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "library_call": LIBRARY_CALLS.get(kid), "size": top["size"],
+            "legs": {f"{g['name']} [{g['src']}]": g["launches"][kid]
+                     for g in e2e["legs"] if g.get("launches", {}).get(kid)},
             "shapes": shapes})
     return {"kernels": out}
 
@@ -573,7 +1026,8 @@ def main(argv=None) -> int:
     phase_build()
     res: dict = {}
     planned = {kid: {ROUND_PAD} for kid in ROUND_KERNELS}
-    planned["K4"] = {SEGMENT}
+    planned["K4"] = planned["K5"] = {SEGMENT}
+    planned["K6"] = planned["K7"] = set(PLANE_PADS)
     phase_kernels(args.seed, planned, res)
     build_root = os.path.join(REPO, "cassandra_tpu_torch", "build")
     os.makedirs(build_root, exist_ok=True)
@@ -583,13 +1037,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # 5. the kernels at every other size the main path launched
-    seen = {kid: set(e2e["sizes"][name])
-            for kid, name in KERNEL_NAMES.items()}
+    seen = {kid: set(e2e["sizes"].get(kid, ())) for kid in KERNEL_NAMES}
     print("shapes: the main path launched " + json.dumps(
         {kid: sorted(v) for kid, v in seen.items()}), flush=True)
     phase_kernels(args.seed, seen, res)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps(kernels_line(res, e2e["sizes"])))
+    print(json.dumps(kernels_line(res, e2e)))
     print(info["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))

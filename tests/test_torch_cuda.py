@@ -72,3 +72,60 @@ def test_meta_block_matches_plain(n):
     assert torch.equal(meta, meta_p)
     assert torch.equal(st, st_p)
     assert dw.meta_stats(st)[:2] == (int(ts.min()), int(ts.max()))
+
+
+def test_segment_scan_matches_plain():
+    """K5 on a sorted stcs-like lane slice (whole constant byte planes,
+    so the match runs cross many tiles) and on an unsorted copy."""
+    from chip_smoke import make_scan_segment
+    from cassandra_tpu_torch.ops import device_compress as dc
+    dev = _card()
+    meta, lanes = make_scan_segment(3, 4096)
+    m = torch.from_numpy(meta).to(dev)
+    before = cuda_lib.launches()["write.segment_scan"]
+    for rows, ok in ((lanes, True), (lanes[[0, 2, 1] + list(range(3, 4096))],
+                                     False)):
+        t = torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to(dev)
+        out = dc.segment_scan(m, t)
+        ref = dc.segment_scan_plain(m, t)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        assert bool(out[5]) is ok
+    assert cuda_lib.launches()["write.segment_scan"] == before + 2
+
+
+@pytest.mark.parametrize("n", [70_000, 300_001])
+def test_policy_scan_long_runs_match_plain(n):
+    from cassandra_tpu_torch.ops import device_compress as dc
+    dev = _card()
+    rng = np.random.default_rng(n)
+    src = np.zeros(n, dtype=np.uint8)
+    src[n // 3:n // 3 + 5000] = rng.integers(0, 4, 5000)
+    src[-7:] = 1
+    t = torch.from_numpy(src).to(dev)
+    no_rows = torch.empty((0, 1), dtype=torch.int32, device=dev)
+    out = dc.segment_scan(t, no_rows)
+    for a, b in zip(out[1:3], dc.policy_scan_plain(t)):
+        assert torch.equal(a, b)
+    assert bool(out[5])
+
+
+@pytest.mark.parametrize("n,N", [(1000, 1024), (9000, 12288)])
+def test_plane_programs_match_plain(n, N):
+    from chip_smoke import make_fast_round, make_v2_round
+    dev = _card()
+    buf, cfg = make_fast_round(n, n, N, partitions=8)
+    b = dm.planes_to_device(buf, dev)
+    before = cuda_lib.launch_sizes()
+    out = dm.plane_program_fast(b, cfg)
+    assert torch.equal(out, dm.plane_program_fast_plain(b, cfg))
+    planes, cfg2 = make_v2_round(n, n, N, partitions=8)
+    p = dm.planes_to_device(planes, dev)
+    out2 = dm.plane_program(p, cfg2)
+    assert torch.equal(out2, dm.plane_program_plain(p, cfg2))
+    masks = (out2[:n].to(torch.int64) >> 24)
+    for bit in (1, 2, 8):                     # keep, ambiguous, shadowed
+        assert bool(((masks & bit) != 0).any()), bit
+    after = cuda_lib.launch_sizes()
+    for k in ("merge.plane_fast", "merge.plane_v2"):
+        assert after[k].get(N, 0) == before[k].get(N, 0) + 1, k

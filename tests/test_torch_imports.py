@@ -25,6 +25,12 @@ _PROBE = textwrap.dedent("""
             importlib.import_module(m.name)
     import chip_smoke                  # its module-level imports
     chip_smoke.stcs_table()
+    from cassandra_tpu_torch.ops import device_compress   # K5's module
+    import numpy as np, torch
+    out = device_compress.segment_scan(
+        torch.zeros(64, dtype=torch.uint8),
+        torch.from_numpy(chip_smoke.make_lanes(1, 16).view(np.int32)))
+    assert bool(out[5]) and out[0].numel() == 4 * 16 * chip_smoke.LANES
     bad = sorted(m for m in sys.modules
                  if (m == "cassandra_tpu" or m.startswith("cassandra_tpu."))
                  or m == "jax" or m.startswith("jax.")
@@ -86,24 +92,37 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_kernels_raise_instead_of_falling_back():
-    from cassandra_tpu_torch.compaction.task import CompactionTask
-    from cassandra_tpu_torch.ops import device_scan, merge
-    from cassandra_tpu_torch.schema import make_table
-    from cassandra_tpu_torch.storage.cellbatch import (FLAG_COUNTER,
-                                                       CellBatchBuilder)
+    from cassandra_tpu_torch.ops import device_scan
 
     with pytest.raises(NotImplementedError, match="K9"):
         device_scan.mask_device(np.zeros(1, np.uint64), None)
     with pytest.raises(NotImplementedError, match="K9"):
         device_scan.segment_mask(np.zeros(1, np.uint64), None, True)
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        CompactionTask(None, [], engine="device", device="cpu",
-                       device_resident=False)
+
+
+def test_plane_program_entry_points_default_to_cuda():
+    """The non-resident round API (K6/K7) takes device= like the other
+    entry points: `cuda` by default (raises without a card), `cpu` on
+    request."""
+    from cassandra_tpu_torch.compaction.task import CompactionTask
+    from cassandra_tpu_torch.ops import merge
+    from cassandra_tpu_torch.schema import make_table
+    from cassandra_tpu_torch.storage.cellbatch import (FLAG_COUNTER,
+                                                       CellBatchBuilder)
+
     t = make_table("ks", "cnt", pk=["id"], cols={"id": "int",
                                                  "hits": "counter"})
     b = CellBatchBuilder(t)
     b.append_raw(t.columns["id"].cql_type.serialize(1), b"",
                  t.columns["hits"].column_id, b"", (3).to_bytes(8, "big"),
                  ts=1, flags=FLAG_COUNTER)
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        merge.submit_merge([b.seal()], device="cpu")
+    batch = b.seal()
+    task = CompactionTask(None, [], engine="device", device="cpu",
+                          device_resident=False)
+    assert task.device.type == "cpu" and not task.device_resident
+    h = merge.submit_merge([batch], device="cpu")
+    assert h.mode == "v2" and h.fut.device.type == "cpu"
+    assert len(merge.collect_merge(h)) == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            merge.submit_merge([batch])
