@@ -313,9 +313,10 @@ class CompactionTask:
         it. Output bytes are identical for every choice — the native
         packer runs the same deterministic policy encoder. A failure
         of the device scan fails the compaction; nothing falls back.
-        device: the torch device of engine='device' (default `cuda`,
-        which raises without a card; `cpu` runs the kernels' plain
-        PyTorch versions). Ignored by the host engines.
+        device: the torch device of engine='device' (default the
+        store's device, else `cuda`, which raises without a card; `cpu`
+        runs the kernels' plain PyTorch versions). Ignored by the host
+        engines.
         """
         self.cfs = cfs
         self.inputs = inputs
@@ -358,7 +359,9 @@ class CompactionTask:
         self.device_resident = device_resident
         self.device = None
         if self.engine == "device":
-            self.device = devmod.resolve(device)
+            self.device = devmod.resolve(
+                device if device is not None
+                else getattr(cfs, "device", None))
         # tri-state like decode_ahead: None = inherit the owning
         # engine's hot-reloadable `compaction_device_compress` knob
         # (re-read PER SEGMENT by the writer), True/False = pinned for

@@ -8,14 +8,17 @@ reopens components from disk. The memtable portion is served by scanning
 the memtable's sorted cache at query time (small, always fresh; the
 reference keeps a trie memtable index for the same role).
 
-The vector index's exact brute-force top-k (one batched matmul on the
-device) is kernel K10 and is not ported yet: VectorIndex.ann raises.
+The vector index does exact brute-force top-k on the index's torch
+device: kernel K10 (ops/ann.py, csrc/ann.cu) scores every row and
+selects the k best in one call. The gathered matrix stays on the device
+under `_gather`'s cache key, so a repeat query copies nothing.
 """
 from __future__ import annotations
 
 import threading
 
 import numpy as np
+import torch
 
 from ..schema import TableMetadata
 from . import sstable_index as ssi
@@ -209,12 +212,16 @@ class TextIndex(_AttachedIndex):
 
 
 class VectorIndex(_AttachedIndex):
-    """Exact ANN over vector<float, d> columns via device matmul, matrices
-    persisted per sstable (index/sai/disk/v1/vector role)."""
+    """Exact ANN over vector<float, d> columns via K10 on the device,
+    matrices persisted per sstable (index/sai/disk/v1/vector role)."""
 
-    def __init__(self, backend, table: TableMetadata, column: str):
+    def __init__(self, backend, table: TableMetadata, column: str,
+                 device=None):
         super().__init__(backend, table, column)
         self.dim = table.columns[column].cql_type.dimension
+        # None resolves to `cuda` at the first query
+        self.device = device
+        self._device_cache = None   # (gathered matrix, its device copy)
 
     def _build(self, reader):
         ssi.build_vector(reader, self.table, self.col_id, self.dim)
@@ -278,14 +285,42 @@ class VectorIndex(_AttachedIndex):
         self._gather_cache = (ver, result)
         return result
 
+    def _device_matrix(self, m: np.ndarray, dev) -> torch.Tensor:
+        """`m` on `dev`, copied once per gathered matrix: the cache
+        holds the numpy matrix itself, so a new gather (a new array)
+        replaces the copy."""
+        cached = self._device_cache
+        if cached is not None and cached[0] is m \
+                and cached[1].device == dev:
+            return cached[1]
+        t = torch.from_numpy(np.ascontiguousarray(m, dtype=np.float32)
+                             ).to(dev)
+        self._device_cache = (m, t)
+        return t
+
     def ann(self, query: np.ndarray, k: int,
             similarity: str = "cosine") -> list:
-        """Top-k (pk, ck, score): one matmul + top-k on the device. This
-        is kernel K10, not ported to the CUDA package yet (ROADMAP
-        queue 2, K10)."""
-        raise NotImplementedError(
-            "vector ANN (K10) is not ported to the CUDA package yet "
-            "(ROADMAP queue 2, K10)")
+        """Top-k (pk, ck, score): the scores and the top k of kernel
+        K10 on the index's device (index/sai vector search role)."""
+        from .. import device as devmod
+        from ..ops.ann import ann_topk
+
+        m, keys = self._gather()
+        if len(m) == 0 or k <= 0:
+            # LIMIT 0 (or below) asks for no row: `lax.top_k` gives an
+            # empty answer for k = 0, and the kernel needs 1 <= k <= n
+            return []
+        dev = devmod.resolve(self.device)
+        q = np.asarray(query, dtype=np.float32)
+        if similarity == "cosine":
+            q = q / max(float(np.linalg.norm(q)), 1e-9)
+        k = min(k, len(m))
+        vals, idx = ann_topk(self._device_matrix(m, dev),
+                             torch.from_numpy(np.ascontiguousarray(
+                                 q, dtype=np.float32)).to(dev),
+                             k, similarity)
+        return [(keys[i][0], keys[i][1], v)
+                for v, i in zip(vals.tolist(), idx.tolist())]
 
 
 class IndexManager:
@@ -293,8 +328,11 @@ class IndexManager:
     memtable is scanned at query time and sstable components attach to
     the sstables themselves."""
 
-    def __init__(self, backend):
+    def __init__(self, backend, device=None):
         self.backend = backend
+        # the torch device of vector search (K10); None resolves to
+        # `cuda` at the first query
+        self.device = device
         # (keyspace, table, column) -> index
         self.indexes: dict[tuple, object] = {}
         self.by_name: dict[tuple, tuple] = {}
@@ -323,7 +361,8 @@ class IndexManager:
             idx = TextIndex(self.backend, table, column,
                             mode=options.get("mode", "PREFIX"))
         elif isinstance(col.cql_type, VectorType):
-            idx = VectorIndex(self.backend, table, column)
+            idx = VectorIndex(self.backend, table, column,
+                              device=self.device)
         else:
             idx = EqualityIndex(self.backend, table, column)
         nm = (table.keyspace, name or f"{table.name}_{column}_idx")

@@ -12,7 +12,8 @@ that launches the kernel, never for a call that runs the plain PyTorch
 version), so a run can show that its main path went through the
 kernels: `reset_launches()` before, `launches()` after.
 `launch_sizes()` splits each count by the launch's size (the padded
-round N for K1-K3, K6 and K7, the segment's cells for K4 and K5), so
+round N for K1-K3, K6 and K7, the segment's cells for K4 and K5, the
+keys for K9, the matrix rows for K10), so
 a check can cover every shape the path launched.
 """
 from __future__ import annotations
@@ -28,14 +29,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("scan.cu", "sort.cu", "reconcile.cu", "compact.cu", "meta.cu",
-           "lzscan.cu", "planes.cu")
+           "lzscan.cu", "planes.cu", "scanmask.cu", "ann.cu")
 HEADERS = ("common.cuh",)
 LIB = os.path.join(BUILD_DIR, "libctpu_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 KERNELS = ("merge.sort_perm", "merge.reconcile", "write.compact_gather",
            "write.meta_block", "write.segment_scan",
-           "merge.plane_fast", "merge.plane_v2")
+           "merge.plane_fast", "merge.plane_v2", "scan.mask", "scan.fold",
+           "index.ann")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCH_SIZES: dict[str, dict[int, int]] = {k: {} for k in KERNELS}
 _count_lock = threading.Lock()
@@ -151,6 +153,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _U = ctypes.c_uint32
+_Q = ctypes.c_uint64
 
 _SIGNATURES = {
     "ctpu_sort_scratch_bytes": (_L, [_I]),
@@ -168,6 +171,11 @@ _SIGNATURES = {
     "ctpu_plane_fast": (_I, [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]),
     "ctpu_plane_v2": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _U, _P, _U, _I,
                            _P, _P, _P, _P, _P]),
+    "ctpu_scan_mask": (_I, [_P, _I, _I, _Q, _P, _I, _P, _P]),
+    "ctpu_scan_fold_scratch_bytes": (_L, [_I]),
+    "ctpu_scan_fold": (_I, [_P, _P, _I, _P, _P, _P]),
+    "ctpu_ann_scratch_bytes": (_L, [_I, _I]),
+    "ctpu_ann_topk": (_I, [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
 
 
@@ -179,7 +187,12 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             build()
-            so = ctypes.CDLL(LIB)
+            try:
+                so = ctypes.CDLL(LIB)
+            except OSError as e:
+                # not an I/O error of the caller's data: callers that
+                # handle OSError (a corrupt sstable) must not take it
+                raise RuntimeError(f"cannot load {LIB}: {e}") from e
             for name, (res, args) in _SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.restype = res

@@ -24,19 +24,29 @@ The same keys feed the flush-time zone maps (index/sstable_index.py):
 a segment's (min key, max key) bounds every live cell, so
 `prune_keep_mask` can drop whole segments without decoding them.
 
-This package carries the host half only: the zone-map columns and
-entries the sstable writer records at flush time, the key helpers, the
-segment pruning and the numpy masks and folds. The device masks and the
-device fold are kernel K9, still to be ported (ROADMAP queue 2): with
-the `scan_device_filter` gate on they raise rather than run on the host.
+The `scan_device_filter` gate picks the leg: on, the predicate mask
+and the count/min/max fold are kernel K9 (csrc/scanmask.cu) on the
+store's torch device, with the u64 keys as native 64-bit words (torch
+carries them as int64 bit patterns); off, the numpy `mask_host`. Both
+legs compute identical results. With the gate on nothing falls back to
+the host: a CUDA device launches the kernel or raises, and only a CPU
+device runs K9's plain PyTorch version (`scan_mask_plain`,
+`scan_fold_plain`). The NaN fix-up (`nan_fix`) and the SUM stay on the
+host over the mask, as in the JAX package: the sum needs an exact
+64-bit accumulator over the selected keys.
 """
 from __future__ import annotations
 
 import struct
 
 import numpy as np
+import torch
 
+from .. import device as devmod
 from ..schema import ColumnKind, TableMetadata
+from ..service.profiling import GLOBAL as _kprof
+from . import cuda_lib
+from .merge import _check
 
 _BIAS = 1 << 63
 _U64_MAX = (1 << 64) - 1
@@ -200,6 +210,13 @@ def value_of_key(kind: str, key: int):
 
 # ------------------------------------------------------------- predicates --
 
+class ScanKeyError(ValueError):
+    """A stored cell whose width does not fit the predicate's key kind:
+    the executor answers such a query with its row scan (counted as
+    `scan.fallback`). The only error the pushdown hands back to the
+    row scan."""
+
+
 #: executor op -> (kernel op, still-exact) per kind family. Prefix keys
 #: truncate, so strict ops widen to their inclusive forms and '!='
 #: degenerates to "every live cell" — all supersets the executor's
@@ -328,23 +345,126 @@ def prune_keep_mask(kmin, kmax, live, pred: CompiledPredicate) -> np.ndarray:
 
 
 # ------------------------------------------------------------ mask kernels --
-# The device half (the eight predicate masks and the count/min/max fold
-# over (hi32, lo32) key pairs) is kernel K9 of the port and is not
-# ported yet (ROADMAP queue 2, K9). Its entry points raise instead of
-# handing the work to the host behind the caller's back.
+# K9 on u64 keys held as int64 bit patterns. The plain versions compare
+# unsigned order as signed int64 after flipping the sign bit (torch has
+# no unsigned 64-bit compare on the CPU).
 
-_K9_MSG = ("device scan kernels (K9) are not ported to the CUDA package "
-           "yet (ROADMAP queue 2, K9); pass use_device=False for the "
-           "host path")
+#: kernel op -> csrc/scanmask.cu ScanOp code
+SCAN_OPS = {"eq": 0, "ne": 1, "lt": 2, "ge": 3, "gt": 4, "le": 5,
+            "in": 6, "all": 7}
+_SIGN_I64 = -(1 << 63)
 
 
-def mask_device(keys: np.ndarray, pred: CompiledPredicate) -> np.ndarray:
-    """Predicate mask on the device: kernel K9, not ported yet."""
-    raise NotImplementedError(_K9_MSG)
+def keys_tensor(keys: np.ndarray, device) -> torch.Tensor:
+    """u64 keys (numpy) as the int64 tensor of their bit patterns."""
+    return torch.from_numpy(np.ascontiguousarray(
+        keys, dtype=np.uint64).view(np.int64)).to(device)
+
+
+def scan_mask_plain(keys: torch.Tensor, kop: str,
+                    qkeys: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch K9 mask (bool[n])."""
+    if kop == "all":
+        return torch.ones(keys.shape[0], dtype=torch.bool,
+                          device=keys.device)
+    q = keys_tensor(qkeys, keys.device)
+    if kop == "in":
+        return torch.isin(keys, q)
+    if kop in ("eq", "ne"):
+        return keys == q[0] if kop == "eq" else keys != q[0]
+    a, b = keys ^ _SIGN_I64, q[0] ^ _SIGN_I64
+    return {"lt": torch.lt, "ge": torch.ge, "gt": torch.gt,
+            "le": torch.le}[kop](a, b)
+
+
+def _scan_mask_cuda(keys: torch.Tensor, kop: str,
+                    qkeys: np.ndarray) -> torch.Tensor:
+    dev = keys.device
+    n = keys.shape[0]
+    _check(keys, "keys", torch.int64, (n,), dev)
+    op = SCAN_OPS[kop]
+    qkeys = np.ascontiguousarray(qkeys, dtype=np.uint64)
+    lib = cuda_lib.lib()
+    with torch.cuda.device(dev):
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        qlist = keys_tensor(qkeys, dev) if kop == "in" else keys[:0]
+        q0 = int(qkeys[0]) if kop != "in" and len(qkeys) else 0
+        rc = lib.ctpu_scan_mask(keys.data_ptr(), n, op, q0,
+                                qlist.data_ptr(), qlist.shape[0],
+                                out.data_ptr(), cuda_lib.stream_of(keys))
+        cuda_lib.check(rc, "ctpu_scan_mask")
+        cuda_lib.count_launch("scan.mask", n)
+    return out
+
+
+def scan_mask(keys: torch.Tensor, kop: str,
+              qkeys: np.ndarray) -> torch.Tensor:
+    """K9's predicate mask: bool[n], True where key <kop> the bound
+    (qkeys[0]; any of qkeys for "in", none when qkeys is empty; every
+    key for "all"). keys: int64[n] bit patterns of the u64 keys. CUDA
+    tensors launch the kernel; CPU tensors run `scan_mask_plain`."""
+    if cuda_lib.is_cuda(keys):
+        return _scan_mask_cuda(keys, kop, qkeys)
+    return scan_mask_plain(keys, kop, qkeys)
+
+
+scan_mask = _kprof.wrap("scan.mask", scan_mask)
+
+
+def scan_fold_plain(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K9 fold: int64[3] = (count, min, max) of the keys
+    under the mask, min and max as u64 bit patterns, sentinels
+    (0, U64_MAX, 0) for an empty mask."""
+    a = keys ^ _SIGN_I64
+    imax = torch.iinfo(torch.int64).max
+    mn = torch.where(mask, a, imax).min() if len(a) else \
+        torch.tensor(imax, device=keys.device)
+    mx = torch.where(mask, a, _SIGN_I64).max() if len(a) else \
+        torch.tensor(_SIGN_I64, device=keys.device)
+    return torch.stack([mask.sum(), mn ^ _SIGN_I64, mx ^ _SIGN_I64])
+
+
+def _scan_fold_cuda(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    dev = keys.device
+    n = keys.shape[0]
+    _check(keys, "keys", torch.int64, (n,), dev)
+    _check(mask, "mask", torch.bool, (n,), dev)
+    lib = cuda_lib.lib()
+    with torch.cuda.device(dev):
+        out = torch.empty(3, dtype=torch.int64, device=dev)
+        scratch = torch.empty(int(lib.ctpu_scan_fold_scratch_bytes(n)),
+                              dtype=torch.uint8, device=dev)
+        rc = lib.ctpu_scan_fold(keys.data_ptr(), mask.data_ptr(), n,
+                                out.data_ptr(), scratch.data_ptr(),
+                                cuda_lib.stream_of(keys))
+        cuda_lib.check(rc, "ctpu_scan_fold")
+        cuda_lib.count_launch("scan.fold", n)
+    return out
+
+
+def scan_fold(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K9's fold: int64[3] = (count, min key, max key) under the mask
+    (keys as int64 bit patterns, mask bool[n]). CUDA tensors launch the
+    kernel; CPU tensors run `scan_fold_plain`."""
+    if cuda_lib.is_cuda(keys):
+        return _scan_fold_cuda(keys, mask)
+    return scan_fold_plain(keys, mask)
+
+
+scan_fold = _kprof.wrap("scan.fold", scan_fold)
+
+
+def mask_device(keys: np.ndarray, pred: CompiledPredicate,
+                device=None) -> np.ndarray:
+    """Predicate mask evaluated by K9 on `device` (default `cuda`):
+    bit-identical to mask_host for any input."""
+    dev = devmod.resolve(device)
+    return scan_mask(keys_tensor(keys, dev), pred.kop,
+                     pred.qkeys).cpu().numpy()
 
 
 def mask_host(keys: np.ndarray, pred: CompiledPredicate) -> np.ndarray:
-    """Numpy reference for mask_device — the per-segment fallback."""
+    """Numpy reference for mask_device — the leg the gate picks off."""
     kop, q = pred.kop, pred.qkeys
     if kop == "all":
         return np.ones(len(keys), dtype=bool)
@@ -377,11 +497,11 @@ def nan_fix(mask: np.ndarray, keys: np.ndarray,
 
 
 def segment_mask(keys: np.ndarray, pred: CompiledPredicate,
-                 use_device: bool) -> tuple[np.ndarray, bool]:
-    """(mask, ran_on_device). The device leg is kernel K9, which is not
-    ported yet: use_device=True raises."""
+                 use_device: bool, device=None) -> tuple[np.ndarray, bool]:
+    """(mask, ran_on_device). use_device: K9 on `device` (default
+    `cuda`), which launches or raises; else the numpy mask."""
     if use_device:
-        raise NotImplementedError(_K9_MSG)
+        return nan_fix(mask_device(keys, pred, device), keys, pred), True
     return nan_fix(mask_host(keys, pred), keys, pred), False
 
 
@@ -417,35 +537,50 @@ def batch_predicate_cells(batch, pred: CompiledPredicate,
     payload = np.asarray(batch.payload)
     keys, valid = keys_from_values(pred.kind, pred.width, payload, vs, ve)
     if not valid.all():
-        raise ValueError(
+        raise ScanKeyError(
             f"column {pred.col_name}: stored cell width does not fit "
             f"kind {pred.kind}")
     return sel, keys
 
 
-def fold_batch(batch, pred: CompiledPredicate, use_device: bool
+def fold_batch(batch, pred: CompiledPredicate, use_device: bool,
+               device=None
                ) -> tuple[int, int | None, int | None, int, bool]:
     """Exact aggregate partials over a RECONCILED batch: (count,
     min_key, max_key, int_sum, ran_on_device). Only called for exact
     predicate kinds, so the mask equals `_match` row for row; the i64
     sum is exact because the executor only pushes SUM/AVG for integer
     widths <= 4 bytes (no 64-bit overflow for any realistic row count).
+    use_device: the mask and the count/min/max fold are K9 on `device`
+    (default `cuda`), which launches or raises; the NaN fix-up between
+    them and the sum run on the host.
     """
-    if use_device:
-        raise NotImplementedError(_K9_MSG)
     sel, keys = batch_predicate_cells(batch, pred, reconciled=True)
     if not len(sel):
-        return 0, None, None, 0, False
-    mask = nan_fix(mask_host(keys, pred), keys, pred)
-    cnt = int(mask.sum())
-    if cnt == 0:
-        return 0, None, None, 0, False
+        return 0, None, None, 0, use_device
+    if use_device:
+        dev = devmod.resolve(device)
+        kt = keys_tensor(keys, dev)
+        mt = scan_mask(kt, pred.kop, pred.qkeys)
+        raw = mt.cpu().numpy()
+        mask = nan_fix(raw, keys, pred)
+        if mask is not raw:
+            mt = torch.from_numpy(mask).to(dev)
+        cnt, kmin, kmax = (int(v) & _U64_MAX
+                           for v in scan_fold(kt, mt).tolist())
+        if cnt == 0:
+            return 0, None, None, 0, True
+    else:
+        mask = nan_fix(mask_host(keys, pred), keys, pred)
+        cnt = int(mask.sum())
+        if cnt == 0:
+            return 0, None, None, 0, False
+        kmin, kmax = int(keys[mask].min()), int(keys[mask].max())
     sel_keys = keys[mask]
-    kmin, kmax = int(sel_keys.min()), int(sel_keys.max())
     total = 0
     if pred.kind == "i64":
         vals = (sel_keys ^ _SIGN64).view(np.int64)
         total = int(vals.sum())
     elif pred.kind == "bool":
         total = int(sel_keys.sum())
-    return cnt, kmin, kmax, total, False
+    return cnt, kmin, kmax, total, use_device

@@ -83,8 +83,15 @@ class DeviceProgramRegistry:
         self._phases: dict[str, float] = {}
         self._pending: list = []      # (kernel, start event, end event)
         self.shape_cap = int(shape_cap)
-        # <= 0 disables the sentinel
+        # <= 0 disables the sentinel; the mutable
+        # profiler_retrace_budget knob lands here (engine wiring)
         self.retrace_budget = 0
+
+    def set_retrace_budget(self, budget) -> None:
+        """The `profiler_retrace_budget` knob landing (process-global
+        like the registry itself: last writer wins across co-hosted
+        engines)."""
+        self.retrace_budget = int(budget)
 
     def _kernel_locked(self, name: str) -> dict:
         k = self._kernels.get(name)

@@ -1,0 +1,744 @@
+"""Node-local storage engine: schema + commitlog + per-table stores.
+
+Reference counterpart: the Keyspace.apply path (db/Keyspace.java:475 —
+commitlog add, then memtable put) plus CassandraDaemon.setup's commitlog
+recovery (service/CassandraDaemon.java:268,339).
+
+The engine owns one torch device (`device=`, resolved once: `cuda` by
+default, which raises without a card; `cpu` runs the kernels' plain
+PyTorch versions). Every store and the index registry get it, so the
+scan kernels (K9) and vector search (K10) run there.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+from ..schema import Schema, TableMetadata
+from ..utils import timeutil
+from .commitlog import CommitLog
+from .mutation import Mutation
+from .table import ColumnFamilyStore
+
+
+class StorageEngine:
+    def __init__(self, data_dir: str, schema: Schema | None = None,
+                 durable_writes: bool = True,
+                 commitlog_sync: str = "periodic",
+                 flush_threshold: int | None = None,
+                 auth_enabled: bool = False,
+                 audit_log_path: str | None = None,
+                 keystore_dir: str | None = None,
+                 commitlog_archive_dir: str | None = None,
+                 encrypt_commitlog: bool = False,
+                 commitlog_compression: str | None = None,
+                 settings=None, device=None):
+        """keystore_dir enables TDE: an EncryptionContext is installed
+        node-wide (tables opt in via WITH encryption = {'enabled': true};
+        encrypt_commitlog covers the WAL). commitlog_archive_dir turns on
+        the segment archiver for point-in-time restore. settings: a
+        config.Settings (DatabaseDescriptor role); defaults apply when
+        omitted. device: the torch device of the engine's kernels
+        (device.resolve: `cuda` unless `cpu` is asked for)."""
+        from .. import device as devmod
+        from ..config import Settings
+        self.device = devmod.resolve(device)
+        self.settings = settings or Settings()
+        self.data_dir = data_dir
+        self.schema = schema or Schema()
+        self.durable = durable_writes
+        self.flush_threshold = flush_threshold
+        # inline threshold-flush stalls paid by writers, THIS engine
+        # only (the storage.write_stall histogram is process-global;
+        # the native-transport overload signal needs an engine-scoped
+        # count so one node's stall can't shed a co-hosted node's
+        # traffic)
+        self.write_stalls = 0
+        os.makedirs(data_dir, exist_ok=True)
+        self.encryption_ctx = None
+        if keystore_dir:
+            from . import encryption as enc_mod
+            existing = enc_mod.get_context()
+            if existing is not None and \
+                    os.path.realpath(existing.keystore_dir) != \
+                    os.path.realpath(keystore_dir):
+                # the context is process-level state (the reference's
+                # DatabaseDescriptor role) and a cluster must share one
+                # keystore anyway — streamed sstables land encrypted and
+                # every replica needs the keys. Two different keystores
+                # in one process would silently cross-encrypt.
+                raise enc_mod.EncryptionError(
+                    f"an EncryptionContext for "
+                    f"{existing.keystore_dir!r} is already installed; "
+                    f"in-process nodes must share one keystore")
+            if existing is None:
+                enc_mod.set_context(enc_mod.EncryptionContext(keystore_dir))
+            self.encryption_ctx = enc_mod.get_context()
+        # storage failure policies (FSErrorHandler/JVMStabilityInspector
+        # role; storage/failures.py): created BEFORE the commitlog and
+        # the stores so every disk/commit error from first open onward
+        # funnels into one policy decision
+        from .failures import FailureHandler
+        self.failures = FailureHandler(self.settings)
+        from .cdc import CDCLog
+        self.cdc = CDCLog(os.path.join(data_dir, "cdc_raw"))
+        self.commitlog = CommitLog(
+            os.path.join(data_dir, "commitlog"),
+            sync_mode=commitlog_sync,
+            archive_dir=commitlog_archive_dir,
+            encrypt=encrypt_commitlog,
+            compression=commitlog_compression
+            or (self.settings.get("commitlog_compression") or None),
+            group_window_ms=self.settings.get(
+                "commitlog_sync_group_window") * 1000.0,
+            failure_handler=self.failures) \
+            if durable_writes else None
+        # nodetool enablebackup: flushed sstables hardlink into
+        # <table>/backups/ (incremental_backups role). Set BEFORE any
+        # store opens — replay at startup creates stores that read it.
+        # Seeded from (and hot-following) the incremental_backups knob;
+        # nodetool enablebackup/disablebackup still writes the
+        # attribute directly.
+        self.incremental_backup = bool(
+            self.settings.get("incremental_backups"))
+        self._backup_listener = \
+            lambda v: setattr(self, "incremental_backup", bool(v))
+        self.settings.on_change("incremental_backups",
+                                self._backup_listener)
+        # full-query log (fql/FullQueryLogger role): a second audit
+        # stream capturing EVERY statement when enabled
+        self.fql_log = None
+        self.stores: dict = {}  # table_id -> ColumnFamilyStore
+        self._lock = threading.RLock()
+        # background compaction (CompactionManager role): flushes enqueue
+        # the store; daemons turn the worker on via enable_auto(), tests
+        # drain explicitly with run_pending()
+        from ..compaction.manager import CompactionManager
+        # NOTE the default is the REFERENCE default (64 MiB/s,
+        # cassandra.yaml:1243) — out-of-the-box nodes are throttled like
+        # the reference; bench.py drives CompactionTask directly and is
+        # unaffected. `compaction_throughput: 0` disables. The modern
+        # knob name compaction_throughput_mib_per_sec takes precedence
+        # when set (>= 0).
+        tput = self.settings.get("compaction_throughput_mib_per_sec")
+        if tput < 0:
+            tput = self.settings.get("compaction_throughput")
+        self.compactions = CompactionManager(
+            throughput_mib_s=tput, auto=False,
+            concurrent=self.settings.get("concurrent_compactors"))
+        # hot-reload: `nodetool setcompactionthroughput` /
+        # `setconcurrentcompactors` / settings table. Either knob change
+        # re-resolves the pair under the documented precedence (modern
+        # name wins when set), so a legacy-knob write can never clobber
+        # a set compaction_throughput_mib_per_sec.
+
+        def _resolve_throughput(_v):
+            mib = self.settings.get("compaction_throughput_mib_per_sec")
+            if mib < 0:
+                mib = self.settings.get("compaction_throughput")
+            self.compactions.set_throughput(mib)
+
+        self._throttle_listener = _resolve_throughput
+        self.settings.on_change("compaction_throughput",
+                                self._throttle_listener)
+        self.settings.on_change("compaction_throughput_mib_per_sec",
+                                self._throttle_listener)
+        self._compactor_listener = \
+            self.compactions.set_concurrent_compactors
+        self.settings.on_change("concurrent_compactors",
+                                self._compactor_listener)
+        # compressor pool (compaction + flush write legs): apply the
+        # configured size now and hot-resize on knob changes — mid-
+        # flight compactions pick the new worker count up immediately
+        # (the pool is shared process state, like the row cache)
+        from .sstable import compress_pool as _compress_pool
+        self._compressor_listener = _compress_pool.configure
+        self.settings.on_change("compaction_compressor_threads",
+                                self._compressor_listener)
+        _compress_pool.configure(
+            self.settings.get("compaction_compressor_threads"))
+        # mesh execution mode (compaction shards + batched/range read
+        # fan-out): the worker POOL is process-global like the
+        # compressor pool, but the demand is ENGINE-OWNED — the pool
+        # sizes to the max across co-hosted engines and each engine's
+        # stores/tasks route by THIS engine's knob (mesh_devices_fn),
+        # so one node's knob never flips a co-hosted node's data plane.
+        # Hot-reloadable; in-flight compactions pick the new width up
+        # on their next task.
+        from ..parallel import fanout as _mesh_fanout
+        self._mesh_listener = \
+            lambda n: _mesh_fanout.configure(n, owner=self)
+        self.settings.on_change("compaction_mesh_devices",
+                                self._mesh_listener)
+        _mesh_fanout.configure(
+            self.settings.get("compaction_mesh_devices"), owner=self)
+        self.compactions.mesh_devices_fn = self._mesh_devices
+
+        # group-commit window hot-reload (nodetool/settings vtable)
+        def _resolve_group_window(v):
+            if self.commitlog is not None:
+                self.commitlog.group_window_ms = float(v) * 1000.0
+
+        self._group_window_listener = _resolve_group_window
+        self.settings.on_change("commitlog_sync_group_window",
+                                self._group_window_listener)
+        # row cache capacity: either knob change re-resolves under the
+        # documented precedence (row_cache_size_mib wins when >= 0)
+        from .row_cache import GLOBAL as _row_cache
+        from .row_cache import resolve_capacity as _rc_capacity
+
+        def _resolve_row_cache(_v):
+            _row_cache.set_capacity(_rc_capacity(self.settings))
+
+        self._rowcache_listener = _resolve_row_cache
+        self.settings.on_change("row_cache_size", self._rowcache_listener)
+        self.settings.on_change("row_cache_size_mib",
+                                self._rowcache_listener)
+        _resolve_row_cache(None)
+        # key cache capacity: the byte-denominated key_cache_size knob
+        # maps onto the shared LRU's entry capacity (KeyCache documents
+        # the per-entry estimate); process-global like the row cache
+        from .key_cache import GLOBAL as _key_cache
+        self._keycache_listener = _key_cache.set_capacity_bytes
+        self.settings.on_change("key_cache_size",
+                                self._keycache_listener)
+        _key_cache.set_capacity_bytes(
+            self.settings.get("key_cache_size"))
+        self._load_schema()
+        self._schema_listener = lambda s: self._save_schema()
+        self.schema.listeners.append(self._schema_listener)
+        self._register_existing()
+        if self.commitlog:
+            self._replay()
+        from .batchlog import Batchlog
+        self.batchlog = Batchlog(os.path.join(data_dir, "batchlog"))
+        self._replay_batchlog()
+        from ..index import IndexManager
+        self.indexes = IndexManager(self, device=self.device)
+        from ..service.triggers import TriggerManager
+        self.triggers = TriggerManager(os.path.join(data_dir, "triggers"))
+        # audit/FQL stream (service/audit.py); None = disabled
+        self.audit_log = None
+        if audit_log_path:
+            from ..service.audit import AuditLog
+            self.audit_log = AuditLog(audit_log_path)
+        self._restore_indexes()
+        from .virtual import build_engine_virtuals
+        self.virtual_tables = build_engine_virtuals(self)
+        from ..service.auth import AuthService
+        self.auth = AuthService(
+            data_dir, enabled=auth_enabled,
+            cache_validity=self.settings.get("auth_cache_validity"))
+        self._auth_validity_listener = \
+            lambda v: setattr(self.auth.cache, "validity", float(v))
+        self.settings.on_change("auth_cache_validity",
+                                self._auth_validity_listener)
+        from .guardrails import Guardrails
+        self.guardrails = Guardrails.from_config(
+            self.settings.config.guardrails)
+        # the top-level tombstone knobs are the yaml-parity surface for
+        # the per-read tombstone guardrails (TombstoneOverwhelming
+        # thresholds): they bind initially and on hot set, UNLESS the
+        # guardrails block pinned its own values (the specific block
+        # wins over the legacy flat knob, load-time or runtime)
+        _g_raw = self.settings.config.guardrails
+
+        def _bind_tombstones(_v):
+            if "tombstones_warn_per_read" not in _g_raw:
+                self.guardrails.tombstones_warn_per_read = int(
+                    self.settings.get("tombstone_warn_threshold"))
+            if "tombstones_fail_per_read" not in _g_raw:
+                self.guardrails.tombstones_fail_per_read = int(
+                    self.settings.get("tombstone_failure_threshold"))
+
+        self._tombstone_listener = _bind_tombstones
+        self.settings.on_change("tombstone_warn_threshold",
+                                self._tombstone_listener)
+        self.settings.on_change("tombstone_failure_threshold",
+                                self._tombstone_listener)
+        _bind_tombstones(None)
+        from ..service.monitoring import QueryMonitor
+        self.monitor = QueryMonitor(
+            threshold_ms=self.settings.get("slow_query_log_timeout")
+            * 1000.0,
+            capacity=self.settings.get("slow_query_log_entries"))
+        # slow-query ring capacity AND threshold are live knobs now,
+        # not constructor constants (nodetool / settings vtable)
+        self._slowlog_listener = self.monitor.set_capacity
+        self.settings.on_change("slow_query_log_entries",
+                                self._slowlog_listener)
+        self._slowlog_threshold_listener = \
+            lambda v: setattr(self.monitor, "threshold_ms",
+                              float(v) * 1000.0)
+        self.settings.on_change("slow_query_log_timeout",
+                                self._slowlog_threshold_listener)
+        # completed request traces (system_traces role): explicit
+        # TRACING ON sessions and trace_probability-sampled ones
+        from ..service.tracing import TraceStore
+        self.trace_store = TraceStore()
+        # diagnostic event bus + flight recorder
+        # (service/diagnostics.py): the bus is process-global like the
+        # metrics registry and gated by the mutable
+        # diagnostic_events_enabled knob; the recorder is engine-scoped
+        # and dumps its black-box bundle on terminal failure-policy
+        # transitions and quarantines (storage/failures.py wiring).
+        from ..service import diagnostics
+        # per-ENGINE demand on the process-global bus (the mesh-knob
+        # demand pattern): this engine's knob flipping off withdraws
+        # only ITS demand — a co-hosted engine whose knob is still on
+        # keeps the bus (and its own black box) running
+        self._diag_listener = \
+            lambda v: diagnostics.GLOBAL.set_demand(id(self), v)
+        self.settings.on_change("diagnostic_events_enabled",
+                                self._diag_listener)
+        diagnostics.GLOBAL.set_demand(
+            id(self), self.settings.get("diagnostic_events_enabled"))
+        self.flight_recorder = diagnostics.FlightRecorder(engine=self)
+        self.failures.flight_recorder = self.flight_recorder
+        # schema changes are diagnostic events too (the listener list
+        # already fires on every DDL mutation)
+        self._schema_diag_listener = lambda s: diagnostics.publish(
+            "schema.change",
+            keyspaces=len(getattr(s, "keyspaces", {})))
+        self.schema.listeners.append(self._schema_diag_listener)
+        # SLO layer (service/slo.py): p99 objectives + error budgets
+        # over the front-door latency hists, breach artifacts through
+        # the flight recorder above. Poll-driven — no background thread
+        # unless a caller start()s one; targets hot-reload through the
+        # mutable slo_targets knob.
+        from ..service.slo import default_service
+        self.slo = default_service(self)
+        self._slo_targets_listener = self.slo.set_targets
+        self.settings.on_change("slo_targets", self._slo_targets_listener)
+        # metrics-history sampler (service/history.py, the workload
+        # observatory): engine-scoped retained time series over the
+        # metrics registry + this engine's gauges. Zero-cost while the
+        # mutable metrics_history_enabled knob is off (no thread); the
+        # flight recorder still takes one on-demand sample at dump
+        # time so bundles always carry a history window.
+        from ..service.history import MetricsHistoryService
+        self.metrics_history = MetricsHistoryService(
+            engine=self,
+            interval_s=self.settings.get("metrics_history_interval"))
+        self._history_enabled_listener = self.metrics_history.set_enabled
+        self.settings.on_change("metrics_history_enabled",
+                                self._history_enabled_listener)
+        self._history_interval_listener = \
+            self.metrics_history.set_interval
+        self.settings.on_change("metrics_history_interval",
+                                self._history_interval_listener)
+        if self.settings.get("metrics_history_enabled"):
+            self.metrics_history.start()
+
+        # adaptive compaction controller (control/loop.py, ROADMAP
+        # item 1): the observe/decide/actuate loop over the history
+        # rings and amplification gauges above. Engine-scoped and
+        # zero-cost while the mutable adaptive_compaction_enabled knob
+        # is off (no decision thread; tick() stays callable on demand).
+        # Actuation goes only through Settings.set(source="controller")
+        # and the ColumnFamilyStore.set_compaction_params seam.
+        from ..control.loop import AdaptiveCompactionController
+        self.controller = AdaptiveCompactionController(
+            engine=self,
+            interval_s=self.settings.get("adaptive_compaction_interval"))
+        self._controller_enabled_listener = self.controller.set_enabled
+        self.settings.on_change("adaptive_compaction_enabled",
+                                self._controller_enabled_listener)
+        self._controller_interval_listener = self.controller.set_interval
+        self.settings.on_change("adaptive_compaction_interval",
+                                self._controller_interval_listener)
+        if self.settings.get("adaptive_compaction_enabled"):
+            self.controller.start()
+
+        # continuous profiler (service/sampler.py + the device-program
+        # registry in service/profiling.py, observability layer 6).
+        # Both are process-global — threads and the accelerator are
+        # process-wide — so the enable knob follows the diagnostic-bus
+        # demand pattern (this engine's knob adds/withdraws only ITS
+        # demand) and the interval/budget knobs land on the shared
+        # singletons (last writer wins, like the shared device).
+        from ..service import profiling as _profiling
+        from ..service import sampler as _sampler
+        self._profiler_enabled_listener = \
+            lambda v: _sampler.GLOBAL.set_demand(id(self), v)
+        self.settings.on_change("profiler_enabled",
+                                self._profiler_enabled_listener)
+        self._profiler_interval_listener = _sampler.GLOBAL.set_interval
+        self.settings.on_change("profiler_interval",
+                                self._profiler_interval_listener)
+        self._retrace_budget_listener = \
+            _profiling.GLOBAL.set_retrace_budget
+        self.settings.on_change("profiler_retrace_budget",
+                                self._retrace_budget_listener)
+        _sampler.GLOBAL.set_interval(
+            self.settings.get("profiler_interval"))
+        _profiling.GLOBAL.set_retrace_budget(
+            self.settings.get("profiler_retrace_budget"))
+        _sampler.GLOBAL.set_demand(
+            id(self), self.settings.get("profiler_enabled"))
+
+        # compaction-history ring bound: every store's per-compaction
+        # stats deque follows the mutable compaction_history_entries
+        # knob (newest kept); stores opened later inherit it in
+        # _open_store
+        def _set_ch_capacity(v):
+            for cfs in list(self.stores.values()):
+                cfs.set_compaction_history_capacity(v)
+
+        self._ch_capacity_listener = _set_ch_capacity
+        self.settings.on_change("compaction_history_entries",
+                                self._ch_capacity_listener)
+
+    def _mesh_devices(self) -> int:
+        """This engine's mesh width (its knob, not the shared pool's —
+        the pool sizes to the max across co-hosted engines; routing is
+        always by the owning engine's own setting)."""
+        return max(int(self.settings.get("compaction_mesh_devices")), 0)
+
+    def _decode_ahead(self) -> bool:
+        """This engine's `compaction_decode_ahead` knob — read by its
+        tasks EVERY ROUND (compaction/task.py), so the hot reload needs
+        no listener and a mid-compaction flip takes effect at the next
+        round boundary. Engine-scoped like the mesh knob: a co-hosted
+        engine's setting never flips this engine's prefetch."""
+        return bool(self.settings.get("compaction_decode_ahead"))
+
+    def _device_compress(self) -> bool:
+        """This engine's `compaction_device_compress` knob — read by
+        its device-resident tasks' writers PER SEGMENT, so the hot
+        reload needs no listener and a mid-compaction flip moves the
+        compress work between device and host at the next segment
+        boundary (output bytes identical either way)."""
+        return bool(self.settings.get("compaction_device_compress"))
+
+    def _scan_device_filter(self) -> bool:
+        """This engine's `scan_device_filter` knob — read by
+        scan_filtered PER SEGMENT, so the hot reload needs no listener
+        and a mid-scan flip moves the predicate/aggregate kernels
+        between device and host at the next segment boundary (results
+        identical either way)."""
+        return bool(self.settings.get("scan_device_filter"))
+
+    def _eager_index_build(self, cfs, reader) -> None:
+        """Build attached-index components for a NEW sstable in the
+        writer tail (flush/compaction) instead of on first query — the
+        restart scan storm the lazy path pays (counted as
+        index.lazy_builds) never happens for sstables born here."""
+        idx = getattr(self, "indexes", None)
+        if idx is not None:
+            idx.build_eager(cfs.table, reader)
+
+    @property
+    def _schema_path(self) -> str:
+        return os.path.join(self.data_dir, "schema.json")
+
+    def _load_schema(self) -> None:
+        """Restore persisted DDL (role of the reference's system_schema
+        tables: schema survives restarts without the client re-issuing
+        CREATEs)."""
+        import json
+        from ..schema import load_schema_dict
+        if os.path.exists(self._schema_path):
+            with open(self._schema_path) as f:
+                load_schema_dict(self.schema, json.load(f))
+
+    def _save_schema(self) -> None:
+        import json
+        from ..schema import schema_to_dict
+        dump = schema_to_dict(self.schema)
+        idx = getattr(self, "indexes", None)
+        if idx is not None:
+            dump["indexes"] = [
+                {"keyspace": ks, "table": tb, "column": col, "name": nm,
+                 **idx.meta.get((ks, tb, col), {})}
+                for (ksn, nm), (ks, tb, col) in idx.by_name.items()]
+        trig = getattr(self, "triggers", None)
+        if trig is not None:
+            dump["triggers"] = trig.to_list()
+        tmp = self._schema_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(dump, f)
+        os.replace(tmp, self._schema_path)
+
+    def _restore_indexes(self) -> None:
+        import json
+        if not os.path.exists(self._schema_path):
+            return
+        with open(self._schema_path) as f:
+            dump = json.load(f)
+        for d in dump.get("indexes", []):
+            try:
+                t = self.schema.get_table(d["keyspace"], d["table"])
+                self.indexes.create(t, d["column"], d["name"],
+                                    custom_class=d.get("custom_class"),
+                                    options=d.get("options"),
+                                    if_not_exists=True)
+            except KeyError:
+                pass  # table dropped since
+        self.triggers.load_list(dump.get("triggers", []))
+
+    def _register_existing(self) -> None:
+        for ks in self.schema.keyspaces.values():
+            for t in ks.tables.values():
+                self._open_store(t)
+
+    def _open_store(self, t: TableMetadata) -> ColumnFamilyStore:
+        cfs = ColumnFamilyStore(t, self.data_dir, self.commitlog,
+                                flush_threshold=self.flush_threshold,
+                                memtable_shards=self.settings.get(
+                                    "memtable_shards") or None,
+                                failures=self.failures,
+                                device=self.device)
+        cfs.backup_enabled = lambda: self.incremental_backup
+        cfs.mesh_devices_fn = self._mesh_devices
+        cfs.decode_ahead_fn = self._decode_ahead
+        cfs.device_compress_fn = self._device_compress
+        cfs.scan_device_filter_fn = self._scan_device_filter
+        cfs.index_build_fn = lambda reader, _cfs=cfs: \
+            self._eager_index_build(_cfs, reader)
+        cfs.set_compaction_history_capacity(
+            self.settings.get("compaction_history_entries"))
+        self.compactions.register(cfs)
+        self.stores[t.id] = cfs
+        return cfs
+
+    # ------------------------------------------------------------- schema --
+
+    def add_table(self, t: TableMetadata) -> ColumnFamilyStore:
+        with self._lock:
+            self.schema.add_table(t)
+            return self._open_store(t)
+
+    def drop_table(self, keyspace: str, name: str) -> None:
+        with self._lock:
+            t = self.schema.get_table(keyspace, name)
+            cfs = self.stores.pop(t.id)
+            cfs.truncate()
+            self.schema.drop_table(keyspace, name)
+            if self.commitlog:
+                self.commitlog.forget_table(t.id)
+
+    def store(self, keyspace: str, name: str) -> ColumnFamilyStore:
+        t = self.schema.get_table(keyspace, name)
+        return self.stores[t.id]
+
+    def store_by_id(self, table_id) -> ColumnFamilyStore:
+        return self.stores[table_id]
+
+    # -------------------------------------------------------------- write --
+
+    def apply(self, mutation: Mutation, durable: bool = True) -> None:
+        """Keyspace.apply: commitlog first, then memtable (one atomic unit
+        vs concurrent flushes); flush when the memtable crosses its
+        threshold."""
+        self.failures.check_can_write()
+        cfs = self.stores.get(mutation.table_id)
+        if cfs is None:
+            raise KeyError(f"unknown table id {mutation.table_id}")
+        from ..service.metrics import GLOBAL
+        from ..service.tracing import active, trace
+        GLOBAL.incr("storage.writes")
+        if active() is not None:
+            trace(f"Appending to commitlog and memtable "
+                  f"({len(mutation.ops)} ops)")
+        if cfs.table.params.cdc:
+            # durable CDC record BEFORE the memtable apply — a write the
+            # consumer never sees must not exist (CommitLogSegmentManagerCDC
+            # ordering); a full cdc_raw FAILS the write like the reference
+            self.cdc.append(mutation)
+        from ..service.metrics import Timer
+        with Timer(cfs.write_hist):
+            cfs.apply(mutation, self.commitlog, durable)
+        self._maybe_flush(cfs)
+
+    def _maybe_flush(self, cfs) -> None:
+        """Threshold flush, timed as a WRITE STALL: the writer that
+        trips should_flush pays the flush inline (the backpressure the
+        reference applies by blocking on memtable cleanup), and
+        storage.write_stall makes that stall observable — the pipelined
+        flush exists to shrink exactly this histogram."""
+        if cfs.should_flush():
+            from ..service.metrics import GLOBAL, Timer
+            self.write_stalls += 1
+            with Timer(GLOBAL.hist("storage.write_stall")):
+                cfs.flush()
+
+    def apply_batch(self, mutations, durable: bool = True) -> None:
+        """Batched Keyspace.apply (the write fast lane for coordinator /
+        messaging / replay batches): mutations grouped per table, each
+        group paying ONE commitlog lock+sync barrier
+        (CommitLog.add_batch) and ONE memtable shard-lock pass
+        (Memtable.apply_batch) instead of a full cycle per mutation."""
+        if not mutations:
+            return
+        self.failures.check_can_write()
+        from ..service.metrics import GLOBAL, Timer
+        from ..service.tracing import active, trace
+        GLOBAL.incr("storage.writes", len(mutations))
+        if active() is not None:
+            trace(f"Batch-appending {len(mutations)} mutation(s) to "
+                  f"commitlog and memtable")
+        groups: dict = {}
+        for m in mutations:
+            cfs = self.stores.get(m.table_id)
+            if cfs is None:
+                raise KeyError(f"unknown table id {m.table_id}")
+            groups.setdefault(m.table_id, (cfs, []))[1].append(m)
+        for cfs, ms in groups.values():
+            if cfs.table.params.cdc:
+                for m in ms:
+                    self.cdc.append(m)
+            with Timer(cfs.write_hist):
+                cfs.apply_batch(ms, self.commitlog, durable)
+            self._maybe_flush(cfs)
+
+    # ------------------------------------------------------------- replay --
+
+    def restore_point_in_time(self, archive_dir: str,
+                              pit_micros: int) -> int:
+        """Replay archived commitlog segments, applying every mutation
+        whose newest cell timestamp is <= pit_micros (CommitLogArchiver
+        restore_point_in_time semantics). Run against a node restored
+        from a snapshot (or empty) BEFORE serving traffic; returns
+        mutations applied. Applied writes go through the normal apply
+        path, so they re-log durably."""
+        applied = 0
+        for _pos, mutation in CommitLog.replay_archived(archive_dir):
+            if mutation.ops and max(op[4] for op in mutation.ops) \
+                    > pit_micros:
+                continue
+            if self.schema.table_by_id(mutation.table_id) is None:
+                continue
+            self.apply(mutation)
+            applied += 1
+        return applied
+
+    def _replay(self) -> None:
+        """Boot recovery: re-apply intact commitlog records to memtables
+        (CommitLogReplayer semantics), then flush and clear the log.
+        Mutations apply in per-table chunks through the batched fast
+        lane (one shard-lock pass per chunk; no re-logging — the
+        records are already on disk)."""
+        replayed = 0
+        chunk: list[Mutation] = []
+        chunk_cfs = None
+
+        def _drain():
+            if chunk_cfs is not None and chunk:
+                chunk_cfs.apply_batch(chunk, commitlog=None)
+
+        for pos, mutation in self.commitlog.replay():
+            cfs = self.stores.get(mutation.table_id)
+            if cfs is None:
+                continue  # table dropped since the write
+            if cfs is not chunk_cfs or len(chunk) >= 512:
+                _drain()
+                chunk, chunk_cfs = [], cfs
+            chunk.append(mutation)
+            replayed += 1
+        _drain()
+        for cfs in self.stores.values():
+            if not cfs.memtable.is_empty:
+                cfs.flush()
+        # everything recovered (or belonging to dropped tables) is dealt
+        # with; reclaim all pre-existing segments
+        self.commitlog.delete_segments_before(
+            self.commitlog.current_position().segment_id)
+
+    def _replay_batchlog(self) -> None:
+        """Finish batches interrupted by a crash (BatchlogManager.replay)
+        — each stored batch re-applies through the batched fast lane."""
+        for bid, muts in self.batchlog.pending():
+            self.apply_batch([m for m in muts
+                              if self.schema.table_by_id(m.table_id)
+                              is not None])
+            self.batchlog.remove(bid)
+
+    # --------------------------------------------------------------- misc --
+
+    def flush_all(self) -> None:
+        for cfs in list(self.stores.values()):
+            cfs.flush()
+
+    def close(self) -> None:
+        try:
+            self.schema.listeners.remove(self._schema_listener)
+        except ValueError:
+            pass
+        try:
+            self.schema.listeners.remove(self._schema_diag_listener)
+        except ValueError:
+            pass
+        self.settings.remove_listener("slow_query_log_entries",
+                                      self._slowlog_listener)
+        self.settings.remove_listener("slow_query_log_timeout",
+                                      self._slowlog_threshold_listener)
+        self.settings.remove_listener("diagnostic_events_enabled",
+                                      self._diag_listener)
+        self.settings.remove_listener("slo_targets",
+                                      self._slo_targets_listener)
+        self.slo.stop()
+        self.settings.remove_listener("metrics_history_enabled",
+                                      self._history_enabled_listener)
+        self.settings.remove_listener("metrics_history_interval",
+                                      self._history_interval_listener)
+        self.settings.remove_listener("compaction_history_entries",
+                                      self._ch_capacity_listener)
+        self.metrics_history.stop()
+        self.settings.remove_listener("adaptive_compaction_enabled",
+                                      self._controller_enabled_listener)
+        self.settings.remove_listener("adaptive_compaction_interval",
+                                      self._controller_interval_listener)
+        self.controller.stop()
+        self.settings.remove_listener("profiler_enabled",
+                                      self._profiler_enabled_listener)
+        self.settings.remove_listener("profiler_interval",
+                                      self._profiler_interval_listener)
+        self.settings.remove_listener("profiler_retrace_budget",
+                                      self._retrace_budget_listener)
+        # withdraw this engine's bus + sampler demands (a closed engine
+        # must not keep a process-global service running for nobody)
+        from ..service import diagnostics
+        from ..service import sampler as _sampler
+        diagnostics.GLOBAL.set_demand(id(self), False)
+        _sampler.GLOBAL.set_demand(id(self), False)
+        self.flight_recorder.close()
+        self.settings.remove_listener("compaction_throughput",
+                                      self._throttle_listener)
+        self.settings.remove_listener("compaction_throughput_mib_per_sec",
+                                      self._throttle_listener)
+        self.settings.remove_listener("concurrent_compactors",
+                                      self._compactor_listener)
+        self.settings.remove_listener("compaction_compressor_threads",
+                                      self._compressor_listener)
+        self.settings.remove_listener("compaction_mesh_devices",
+                                      self._mesh_listener)
+        # a closing engine's lane demand must not keep the shared pool
+        # sized for it (or keep mesh mode on for nobody)
+        from ..parallel import fanout as _mesh_fanout
+        _mesh_fanout.configure(0, owner=self)
+        self.settings.remove_listener("commitlog_sync_group_window",
+                                      self._group_window_listener)
+        self.settings.remove_listener("row_cache_size",
+                                      self._rowcache_listener)
+        self.settings.remove_listener("row_cache_size_mib",
+                                      self._rowcache_listener)
+        self.settings.remove_listener("key_cache_size",
+                                      self._keycache_listener)
+        self.settings.remove_listener("incremental_backups",
+                                      self._backup_listener)
+        self.settings.remove_listener("auth_cache_validity",
+                                      self._auth_validity_listener)
+        self.settings.remove_listener("tombstone_warn_threshold",
+                                      self._tombstone_listener)
+        self.settings.remove_listener("tombstone_failure_threshold",
+                                      self._tombstone_listener)
+        self.failures.close()
+        self.compactions.close()
+        if self.commitlog:
+            self.commitlog.close()
+        if self.audit_log is not None:
+            self.audit_log.close()
+        for cfs in self.stores.values():
+            for sst in cfs.live_sstables():
+                sst.close()

@@ -163,8 +163,13 @@ class ColumnFamilyStore:
     def __init__(self, table: TableMetadata, data_dir: str,
                  commitlog=None, flush_threshold: int | None = None,
                  memtable_shards: int | None = None,
-                 failures: FailureHandler | None = None):
+                 failures: FailureHandler | None = None,
+                 device=None):
+        """device: the torch device of the scan kernels (K9) when the
+        `scan_device_filter` gate is on; None resolves to `cuda` at
+        the first device scan (a StorageEngine passes its own)."""
         self.table = table
+        self.device = device
         # disk/commit failure policy decisions (FSErrorHandler role);
         # engine-scoped when opened by a StorageEngine, a private
         # best_effort/ignore default for standalone stores
@@ -1169,8 +1174,10 @@ class ColumnFamilyStore:
         rows: per sstable, zone maps (index/sstable_index.py ZMP1)
         prune whole segments — and whole sstables — before decode, and
         the surviving segments' value lanes run through the
-        ops/device_scan.py predicate kernels (host numpy reference per
-        segment on fallback, results identical). Phase B reads JUST the
+        ops/device_scan.py predicate mask: kernel K9 on the store's
+        device with the gate on, the numpy `mask_host` with it off
+        (results identical; a K9 failure raises, nothing falls back to
+        the host). Phase B reads JUST the
         candidate partitions through read_partitions, so callers get
         exactly the merged, reconciled view a naive full scan would
         have produced for those partitions — Phase A is a provable
@@ -1241,7 +1248,8 @@ class ColumnFamilyStore:
                             if not len(sel):
                                 continue
                             mask, on_dev = ds.segment_mask(
-                                keys, pred, bool(gate()))
+                                keys, pred, bool(gate()),
+                                device=self.device)
                         loc["device_segments" if on_dev
                             else "host_segments"] += 1
                         st_filter.add_items(len(sel))
@@ -1266,7 +1274,8 @@ class ColumnFamilyStore:
                 sel, keys = ds.batch_predicate_cells(mem, pred,
                                                      reconciled=False)
                 if len(sel):
-                    mask, _ = ds.segment_mask(keys, pred, bool(gate()))
+                    mask, _ = ds.segment_mask(keys, pred, bool(gate()),
+                                              device=self.device)
                     for i in sel[mask]:
                         pks.add(mem.partition_key(int(i)))
         view = self.tracker.view()
@@ -1331,7 +1340,8 @@ class ColumnFamilyStore:
             return 0, None, None, 0, info
         big = CellBatch.concat(parts) if len(parts) > 1 else parts[0]
         cnt, kmn, kmx, sm, on_dev = ds.fold_batch(big, pred,
-                                                  bool(gate()))
+                                                  bool(gate()),
+                                                  device=self.device)
         info["fold_on_device"] = on_dev
         if cnt == 0:
             return 0, None, None, 0, info

@@ -23,14 +23,21 @@ result line:
               programs, on synthetic v3 / v2 rounds padded to 524,288 and
               786,432 (the K7 round holds partition, row and complex
               deletions, equal stamps and padding, and must give keep,
-              ambiguous and shadowed rows).
-  4. e2e      the main paths, on input sstables in bench.py's `stcs`
-              shape (4 runs, 4,096 partitions, clustering 1..9,999, 64 B
-              random blob values, ts in [1, 2^40), LZ4 16 KiB): the native
-              engine, then CompactionTask(engine="device") on `cuda` with
+              ambiguous and shadowed rows); K9, the scan mask (eight ops)
+              and fold, on 65,536 u64 keys with the edge keys; K10, vector
+              search, on a 1,000,000 x 128 gaussian matrix for the three
+              similarities and k = 10 and 100 (equal indices, scores
+              within ANN_TOL).
+  4. e2e      the compaction paths, on input sstables in bench.py's
+              `stcs` shape (4 runs, 4,096 partitions, clustering
+              1..9,999, 64 B random blob values, ts in [1, 2^40), LZ4
+              16 KiB): the native engine, then
+              CompactionTask(engine="device") on `cuda` with
               device_compress=False (K1-K4), with the knob at its default
-              (K1-K5, one K5 per full segment) and with
-              device_resident=False (K6 per round), the mesh mode with two
+              (K1-K5, one K5 per full segment; on its own input of 4 runs
+              of a COMPRESS_LEG_CUT-th of the cells, beside that input's
+              native leg) and with device_resident=False (K6 per round),
+              the mesh mode with two
               lanes on the one card (K6), and, beside its own native leg,
               device_resident=False on the same runs plus a fifth run of
               deletions (2% cell tombstones, row and partition deletions;
@@ -40,9 +47,31 @@ result line:
               input's native leg over every component, and every output
               is read back and its cell count checked. The counters also
               split the launches by size (padded round N, segment cells).
-  5. shapes   phase 3 again at every size the main paths launched that
+  5. read     the CQL read path: Session over StorageEngine(device=
+              "cuda"). scan.events (k int, c int, v int, PRIMARY KEY
+              (k, c)): 1,000,000 partitions x 10 rows, v uniform over
+              the int range, bulk-written as 4 sstables; (a) SELECT k,
+              c, v ... WHERE v = ? and (b) SELECT count(*), min(v),
+              max(v), sum(v) ... WHERE v < ? (1% of the cells), ALLOW
+              FILTERING, with two mesh lanes and `scan_device_filter` on
+              (K9 must launch, `scan.fallback` must not move), off (no
+              K9 launch) and on again (the first leg reads cold caches;
+              the third adds (b'), the same aggregate over 0.1% of the
+              cells), then at the engine's default of no mesh lanes with
+              the knob on: (a) and (b'). The counters are reset before
+              each query and read after it; every query must equal a
+              numpy oracle over the generated data. emb (id int, c int,
+              v vector<float, 128>) with a SAI index: 1,000,000 gaussian
+              rows; ORDER BY v ANN OF [...] LIMIT 10 and 100 through CQL
+              (cosine) and VectorIndex.ann for dot, euclidean and
+              cosine: ids equal to a float64 numpy oracle, scores within
+              ANN_TOL, the oracle's k-th and (k+1)-th scores further
+              apart than it. Wall ms per query and the launches are
+              printed.
+  6. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
-              its partition's end pads to 2^20).
+              its partition's end pads to 2^20; the scan mask's segment
+              remainders and the fold's candidate count).
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel: route, source, the JAX function it replaces, launches over the
@@ -81,6 +110,27 @@ STCS_RUNS = 4
 STCS_CELLS_PER_RUN = 2_500_000       # BASELINE.json config 1: n = 10M
 STCS_PARTITIONS = 4096
 VALUE_BYTES = 64
+# the default-configuration leg (K5) runs on its own cut input: its
+# host payload scans take seconds per segment (PERF.md section 5)
+COMPRESS_LEG_CUT = 4
+# the read cells: scan.events (10 rows per partition) and emb
+# the engine's mesh lanes (`compaction_mesh_devices`) in the read phase's
+# first three legs: with none (the default, the fourth leg), Phase B
+# merges each candidate partition on its own (PERF.md section 5)
+READ_MESH_LANES = 2
+SCAN_PARTITIONS = 1_000_000
+SCAN_ROWS = 10
+SCAN_RUNS = 4
+SCAN_SELECTIVITY = 0.01
+# the aggregate of the default-lanes leg: a tenth of (b)'s cells
+NARROW_SELECTIVITY = 0.001
+ANN_ROWS = 1_000_000
+ANN_DIM = 128
+ANN_KS = (10, 100)
+# |kernel score - oracle score| allowed, per similarity: float32 sums of
+# 128 products in another order differ by about 1e-5 (dot, euclidean,
+# scores of tens) and 1e-7 (cosine, scores below 1)
+ANN_TOL = {"cosine": 1e-5, "dot": 1e-3, "euclidean": 1e-3}
 DEVICE = "cuda"
 COMPONENTS = ("Data.db", "Index.db", "Partitions.db", "Filter.db",
               "Statistics.db", "Digest.crc32")
@@ -302,6 +352,32 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call without the host's cost of issuing
+    it: `calls` calls captured in one CUDA graph, the graph replayed
+    `reps` times between CUDA events. For kernels whose wrapper takes
+    longer to issue a launch than the card takes to run it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -597,17 +673,157 @@ def check_planes(seed: int, N: int, res: dict) -> None:
            ops=N * log_n * 5)
 
 
+def scan_keys(seed: int, n: int) -> np.ndarray:
+    """n u64 scan keys over the whole range, from the seed, with the
+    edge keys 0, 2^63 - 1, 2^63 and 2^64 - 1 first."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    edges = np.array([0, (1 << 63) - 1, 1 << 63, (1 << 64) - 1], np.uint64)
+    keys[:min(n, 4)] = edges[:min(n, 4)]
+    return keys
+
+
+def check_scanmask(seed: int, n: int, res: dict) -> None:
+    """K9's mask against its plain version on n keys for the eight ops
+    (IN with eight keys), exact; warm times per op. The numbers kept
+    at the top are the eq op's, which one torch call also computes."""
+    from cassandra_tpu_torch.ops import device_scan as ds
+
+    dev = torch.device(DEVICE)
+    keys = scan_keys(seed + 6, n)
+    kc = ds.keys_tensor(keys, dev)
+    q1 = keys[[n // 3]] if n else np.zeros(1, np.uint64)
+    qin = keys[::max(1, n // 8)][:8]
+    err, ops_ms, hits = 0, {}, {}
+    for op in ds.SCAN_OPS:
+        qk = qin if op == "in" else (q1[:0] if op == "all" else q1)
+        m = ds.scan_mask(kc, op, qk)
+        mp = ds.scan_mask_plain(kc, op, qk)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(m, mp))
+        hits[op] = int(m.sum())
+        ops_ms[op] = cuda_ms(lambda: ds.scan_mask(kc, op, qk))
+    need(err == 0, f"K9 scan_mask at n={n}: kernel != plain")
+    q_i64 = int(q1.view(np.int64)[0])
+    need(torch.equal(ds.scan_mask(kc, "eq", q1), kc == q_i64),
+         "K9 scan_mask: torch.eq disagrees")
+    # the wrapper without its profiling hook (which reads events, and no
+    # event may be read while a graph is captured)
+    raw = ds.scan_mask.__wrapped__
+    _entry(res, "K9", "scan.mask", n, err=err, ms=ops_ms["eq"],
+           plain_ms=cuda_ms(lambda: ds.scan_mask_plain(kc, "eq", q1),
+                            reps=3),
+           library_ms=cuda_ms(lambda: torch.eq(kc, q_i64)),
+           graph_ms=graph_ms(lambda: raw(kc, "eq", q1)),
+           library_graph_ms=graph_ms(lambda: torch.eq(kc, q_i64)),
+           ops_ms=ops_ms, hits=hits, bytes=9 * n)
+
+
+def check_scanfold(seed: int, n: int, res: dict) -> None:
+    """K9's fold against its plain version on n keys under a 1% mask
+    (the aggregate's), an empty and a full mask, exact."""
+    from cassandra_tpu_torch.ops import device_scan as ds
+
+    dev = torch.device(DEVICE)
+    keys = scan_keys(seed + 7, n)
+    kc = ds.keys_tensor(keys, dev)
+    lt = ds.scan_mask(kc, "lt", np.array([(1 << 64) // 100], np.uint64))
+    err = 0
+    for mask in (lt, torch.zeros_like(lt), torch.ones_like(lt)):
+        got = ds.scan_fold(kc, mask)
+        want = ds.scan_fold_plain(kc, mask)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+    need(err == 0, f"K9 scan_fold at n={n}: kernel != plain")
+    raw = ds.scan_fold.__wrapped__
+    _entry(res, "K9f", "scan.fold", n, err=err,
+           ms=cuda_ms(lambda: ds.scan_fold(kc, lt)),
+           graph_ms=graph_ms(lambda: raw(kc, lt)),
+           plain_ms=cuda_ms(lambda: ds.scan_fold_plain(kc, lt), reps=3),
+           library_ms=None, selected=int(lt.sum()), bytes=9 * n + 24)
+
+
+def ann_bytes(n: int, d: int, k: int) -> int:
+    """K10 reads the matrix and the query once, writes k scores and
+    indices."""
+    return 4 * n * d + 4 * d + 8 * k
+
+
+def ann_ops(n: int, d: int, sim: str) -> int:
+    """Floating-point operations: a multiply and an add per element
+    (cosine another two for the norm; euclidean a subtract, multiply
+    and add)."""
+    return {"cosine": 4, "dot": 2, "euclidean": 3}[sim] * n * d
+
+
+def check_ann(seed: int, n: int, res: dict, d: int = ANN_DIM) -> None:
+    """K10 against its plain version on an n x d gaussian matrix on the
+    card for the three similarities and k = 10 and 100: equal indices,
+    scores within ANN_TOL, and the plain version's k-th and (k+1)-th
+    scores further apart than the tolerance (else the top k is not
+    decided at float32 precision). The numbers kept at the top are
+    dot at k = 10, which torch.topk(m @ q, k) also computes."""
+    from cassandra_tpu_torch.ops import ann
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    m = torch.randn(n, d, generator=g, device=dev)
+    q = torch.randn(d, generator=g, device=dev)
+    qn = q / q.norm().clamp_min(1e-9)
+    cases, err = {}, 0.0
+    for sim in ann.SIMILARITIES:
+        qq = qn if sim == "cosine" else q
+        full = ann.scores_plain(m, qq, sim)
+        srt = torch.sort(full, descending=True).values
+        for k in ANN_KS:
+            s, i = ann.ann_topk(m, qq, k, sim)
+            sp, ip = ann.ann_topk_plain(m, qq, k, sim)
+            torch.cuda.synchronize()
+            gap = float(srt[k - 1] - srt[k])
+            need(gap > ANN_TOL[sim], f"K10 {sim} k={k}: the k-th and "
+                 f"(k+1)-th scores are {gap} apart, within the tolerance")
+            need(torch.equal(i, ip), f"K10 {sim} k={k}: kernel indices "
+                                     "!= plain")
+            e = float((s - sp).abs().max())
+            need(e <= ANN_TOL[sim], f"K10 {sim} k={k}: scores differ by "
+                                    f"{e} > {ANN_TOL[sim]}")
+            err = max(err, e)
+            lib = None
+            if sim == "dot":
+                li = torch.topk(m @ qq, k).indices.to(torch.int32)
+                need(torch.equal(li, i), "K10: torch.topk disagrees")
+                lib = cuda_ms(lambda: torch.topk(m @ qq, k), reps=5)
+            cases[f"{sim}/k={k}"] = {
+                "ms": cuda_ms(lambda: ann.ann_topk(m, qq, k, sim), reps=5),
+                "plain_ms": cuda_ms(
+                    lambda: ann.ann_topk_plain(m, qq, k, sim), reps=2),
+                "library_ms": lib, "max_abs_err": e,
+                "bound_ms": bound_ms(ann_bytes(n, d, k), ann_ops(n, d, sim)),
+                "kth_gap": gap}
+    top = cases[f"dot/k={ANN_KS[0]}"]
+    _entry(res, "K10", "index.ann", n, err=err, ms=top["ms"],
+           plain_ms=top["plain_ms"], library_ms=top["library_ms"],
+           cases=cases, bytes=ann_bytes(n, d, ANN_KS[0]),
+           ops=ann_ops(n, d, "dot"))
+
+
 ROUND_KERNELS = ("K1", "K2", "K3")
 PLANE_KERNELS = ("K6", "K7")
 KERNEL_NAMES = {"K1": "merge.sort_perm", "K2": "merge.reconcile",
                 "K3": "write.compact_gather", "K4": "write.meta_block",
                 "K5": "write.segment_scan", "K6": "merge.plane_fast",
-                "K7": "merge.plane_v2"}
+                "K7": "merge.plane_v2", "K9": "scan.mask",
+                "K9f": "scan.fold", "K10": "index.ann"}
+
+
+def kid_order(kid: str) -> tuple:
+    """K1 < K2 < ... < K9 < K9f < K10."""
+    return (int(kid[1:].rstrip("f")), kid)
 
 
 def print_checks(res: dict, sizes: dict) -> None:
-    for kid in sorted(res):
-        for size in sorted(sizes[kid]):
+    for kid in sorted(res, key=kid_order):
+        for size in sorted(sizes.get(kid, ())):
             r = res[kid]["shapes"][size]
             lib = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
@@ -622,6 +838,25 @@ def print_checks(res: dict, sizes: dict) -> None:
                       f"planes {r['emit_ms']:.4f} ms, longest run "
                       f"{r['longest_run']}, LZ4 bytes {r['sizes_lz4']}",
                       flush=True)
+            if kid == "K9":
+                print("  K9 kernel ms per op: " + json.dumps(
+                    {k: round(v, 4) for k, v in r["ops_ms"].items()})
+                    + f"; hits {r['hits']}", flush=True)
+            if "graph_ms" in r:
+                lib = r.get("library_graph_ms")
+                print(f"  {kid} device ms per launch in a CUDA graph (no "
+                      f"host issue cost): kernel {r['graph_ms']:.4f}"
+                      + ("" if lib is None else f", library {lib:.4f}"),
+                      flush=True)
+            if kid == "K10":
+                for case, c in r["cases"].items():
+                    lib = ("n/a" if c["library_ms"] is None
+                           else f"{c['library_ms']:.4f}")
+                    print(f"  K10 {case}: kernel {c['ms']:.4f} ms, plain "
+                          f"{c['plain_ms']:.4f} ms, library {lib} ms, "
+                          f"bound {c['bound_ms']:.4f} ms, max abs err "
+                          f"{c['max_abs_err']:.3g}, k-th gap "
+                          f"{c['kth_gap']:.4g}", flush=True)
 
 
 def phase_kernels(seed: int, sizes: dict, res: dict) -> None:
@@ -639,6 +874,12 @@ def phase_kernels(seed: int, sizes: dict, res: dict) -> None:
         check_scan(seed, seg_n, res)
     for N in sorted(set().union(*(todo[k] for k in PLANE_KERNELS))):
         check_planes(seed, N, res)
+    for n in sorted(todo["K9"]):
+        check_scanmask(seed, n, res)
+    for n in sorted(todo["K9f"]):
+        check_scanfold(seed, n, res)
+    for n in sorted(todo["K10"]):
+        check_ann(seed, n, res)
     print_checks(res, todo)
 
 
@@ -799,13 +1040,15 @@ class RoundLog:
 
 # leg: (name, inputs, task options, kernels that must launch, kernels
 # that must not). "stcs" is the 4-run input, "stcs+del" that plus a run
-# of deletions. Every device leg is sha256-compared with its input's
+# of deletions, "stcs-cut" the 4-run input at a COMPRESS_LEG_CUT-th of
+# the cells. Every device leg is sha256-compared with its input's
 # native leg.
 LEGS = (
     ("native", "stcs", {"engine": "native"}, (), ()),
     ("device", "stcs", {"engine": "device", "device_compress": False},
      ("K1", "K2", "K3", "K4"), ("K5", "K6", "K7")),
-    ("device-compress", "stcs", {"engine": "device"},
+    ("native", "stcs-cut", {"engine": "native"}, (), ()),
+    ("device-compress", "stcs-cut", {"engine": "device"},
      ("K1", "K2", "K3", "K4", "K5"), ("K6", "K7")),
     ("non-resident", "stcs", {"engine": "device", "device_resident": False},
      ("K6",), ("K1", "K4", "K5", "K7")),
@@ -865,6 +1108,16 @@ def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
     t0 = time.perf_counter()
     build_stcs_inputs(cfs.directory, table, seed, cells_per_run)
     print(f"e2e: built stcs, {STCS_RUNS} x {cells_per_run} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    inputs["stcs-cut"] = os.path.join(work, "stcs-cut")
+    ccfs = ColumnFamilyStore(table, inputs["stcs-cut"], commitlog=None)
+    t0 = time.perf_counter()
+    cut = cells_per_run // COMPRESS_LEG_CUT
+    build_stcs_inputs(ccfs.directory, table, seed + 1, cut)
+    print(json.dumps({"reduced": {
+        "leg": "device-compress", "cells_per_run": cut,
+        "published": STCS_CELLS_PER_RUN, "runs": STCS_RUNS}}))
+    print(f"e2e: built stcs-cut, {STCS_RUNS} x {cut} cells in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     inputs["stcs+del"] = os.path.join(work, "stcs+del")
     shutil.copytree(inputs["stcs"], inputs["stcs+del"])
@@ -945,6 +1198,248 @@ def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
     return {"sizes": sizes, "legs": legs}
 
 
+# ------------------------------------------------------------- 5. read --
+
+def write_int_runs(cfs, pk: np.ndarray, ck: np.ndarray, values: np.ndarray,
+                   runs: int, ts: int) -> None:
+    """Bulk-write rows (int pk, int ck, one column of fixed-width
+    values) into `cfs` as `runs` sstables over consecutive partition
+    ranges (tools/bulk.build_int_batch + the threaded writer), then
+    load them into the store."""
+    from cassandra_tpu_torch.storage import cellbatch as cb
+    from cassandra_tpu_torch.storage.sstable import (Descriptor,
+                                                     SSTableWriter)
+    from cassandra_tpu_torch.storage.sstable.compress_pool import get_pool
+    from cassandra_tpu_torch.tools import bulk
+
+    table = cfs.table
+    col = table.regular_columns[0].column_id
+    cuts = np.linspace(0, len(pk), runs + 1).astype(np.int64)
+    for r in range(runs):
+        sl = slice(cuts[r], cuts[r + 1])
+        n = cuts[r + 1] - cuts[r]
+        merged = cb.merge_sorted([bulk.build_int_batch(
+            table, pk[sl], ck[sl], values[sl], np.full(n, ts, np.int64),
+            column_id=col)])
+        w = SSTableWriter(Descriptor(cfs.directory, cfs.next_generation()),
+                          table, estimated_partitions=len(np.unique(pk[sl])),
+                          threaded_io=True, compress_pool=get_pool())
+        w.append(merged)
+        w.finish()
+    cfs.reload_sstables()
+
+
+def ann_oracle(m64: np.ndarray, q: np.ndarray, k: int, sim: str):
+    """Brute force in float64 (numpy): (indices, scores) of the top k,
+    and the (k+1)-th score."""
+    q64 = q.astype(np.float64)
+    if sim == "euclidean":
+        s = -((m64 - q64) ** 2).sum(axis=1)
+    else:
+        s = m64 @ q64
+        if sim == "cosine":
+            s = s / np.maximum(np.linalg.norm(m64, axis=1), 1e-9) \
+                / max(float(np.linalg.norm(q64)), 1e-9)
+    order = np.argsort(-s, kind="stable")[:k + 1]
+    return order[:k], s[order[:k]], s[order[k]]
+
+
+def phase_read(seed: int, partitions: int, ann_rows: int, work: str) -> dict:
+    """The CQL read path through the port's Session over
+    StorageEngine(device=DEVICE): filtered selects and their aggregate
+    on scan.events with `scan_device_filter` on (K9), off (numpy masks)
+    and on again, then ANN queries on emb (K10), each against a numpy
+    oracle over the generated data. Launch counters are reset just
+    before each leg and read just after."""
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.ops import cuda_lib
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.service.metrics import GLOBAL as METRICS
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+
+    if (partitions, ann_rows) != (SCAN_PARTITIONS, ANN_ROWS):
+        print(json.dumps({"reduced": {
+            "scan_partitions": partitions, "published": SCAN_PARTITIONS,
+            "ann_rows": ann_rows, "published_ann_rows": ANN_ROWS}}))
+    ids = {name: kid for kid, name in KERNEL_NAMES.items()}
+    eng = StorageEngine(os.path.join(work, "read"), Schema(),
+                        commitlog_sync="batch", device=DEVICE)
+    try:
+        s = Session(eng)
+        s.execute("CREATE KEYSPACE scan WITH replication = "
+                  "{'class': 'SimpleStrategy', 'replication_factor': 1}")
+        s.execute("USE scan")
+        s.execute("CREATE TABLE events (k int, c int, v int, "
+                  "PRIMARY KEY (k, c))")
+        s.execute(f"CREATE TABLE emb (id int, c int, v vector<float, "
+                  f"{ANN_DIM}>, PRIMARY KEY (id, c))")
+        s.execute("CREATE CUSTOM INDEX ON emb (v) USING 'SAI'")
+        rng = np.random.default_rng(seed + 9)
+        ts = int(time.time() * 1e6)
+
+        # scan.events: partitions x SCAN_ROWS cells, v uniform int32
+        t0 = time.perf_counter()
+        n = partitions * SCAN_ROWS
+        pk = np.repeat(np.arange(partitions, dtype=np.int64), SCAN_ROWS)
+        ck = np.tile(np.arange(SCAN_ROWS, dtype=np.int64), partitions)
+        v = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+        write_int_runs(eng.store("scan", "events"), pk, ck,
+                       v.astype(">i4").view(np.uint8).reshape(n, 4),
+                       SCAN_RUNS, ts)
+        print(f"read: built scan.events, {partitions} partitions x "
+              f"{SCAN_ROWS} rows = {n} cells in {SCAN_RUNS} sstables in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        v_eq = int(v[n // 2])
+        hit = v == v_eq
+        want_a = sorted(zip(pk[hit].tolist(), ck[hit].tolist(),
+                            v[hit].tolist()))
+        qa = "SELECT k, c, v FROM events WHERE v = ? ALLOW FILTERING"
+        qb = ("SELECT count(*), min(v), max(v), sum(v) FROM events "
+              "WHERE v < ? ALLOW FILTERING")
+        queries = {"(a)": (qa, [v_eq], want_a)}
+        for tag, frac in (("(b)", SCAN_SELECTIVITY),
+                          ("(b')", NARROW_SELECTIVITY)):
+            thr = int(-(1 << 31) + frac * (1 << 32))
+            low = v[v < thr].astype(np.int64)
+            queries[tag] = (qb, [thr], [(len(low), int(low.min()),
+                                         int(low.max()), int(low.sum()))])
+        default_lanes = int(eng.settings.get("compaction_mesh_devices"))
+        legs, sizes, out = [], {}, {}
+        # (knob, mesh lanes, queries): on (cold: the first reads fill the
+        # chunk and key caches), off, on again (warm, as the off leg
+        # ran), then the engine's default lanes, which merge each
+        # candidate partition of Phase B on its own: there the narrower
+        # aggregate (b') stands in for (b)
+        plan = ((True, READ_MESH_LANES, ("(a)", "(b)")),
+                (False, READ_MESH_LANES, ("(a)", "(b)")),
+                (True, READ_MESH_LANES, ("(a)", "(b)", "(b')")),
+                (True, default_lanes, ("(a)", "(b')")))
+        for i, (on, lanes, tags) in enumerate(plan):
+            eng.settings.set("scan_device_filter", on)
+            eng.settings.set("compaction_mesh_devices", lanes)
+            name = (f"scan_device_filter={'on' if on else 'off'}, "
+                    f"{lanes} mesh lanes" + (" (cold)" if i == 0 else ""))
+            for tag in tags:
+                q, params, want = queries[tag]
+                f0 = METRICS.counter("scan.fallback")
+                torch.cuda.synchronize()
+                cuda_lib.reset_launches()
+                t0 = time.perf_counter()
+                rows = s.execute(q, params).rows
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = {ids[k]: c for k, c in
+                            cuda_lib.launches().items() if k in ids}
+                by_size = {ids[k]: v2 for k, v2 in
+                           cuda_lib.launch_sizes().items()
+                           if k in ids and v2}
+                shown = (f"{len(rows)} rows" if tag == "(a)"
+                         else str(rows))
+                print(f"  read [{name}] {tag}: {shown} in {ms:.1f} ms; K9 "
+                      f"launches: mask {launches['K9']}, fold "
+                      f"{launches['K9f']}; by size {by_size}", flush=True)
+                need(sorted(rows) == want,
+                     f"read [{name}] {tag}: {len(rows)} rows "
+                     f"{rows[:3]}, the oracle {len(want)} {want[:3]}")
+                need(METRICS.counter("scan.fallback") == f0,
+                     f"read [{name}] {tag}: scan.fallback moved")
+                if on:
+                    need(launches["K9"] > 0 and (
+                        tag == "(a)" or launches["K9f"] > 0),
+                        f"read [{name}] {tag}: K9 was not launched: "
+                        f"{launches}")
+                    for kid, by in by_size.items():
+                        sizes.setdefault(kid, {})
+                        for sz, c in by.items():
+                            sizes[kid][sz] = sizes[kid].get(sz, 0) + c
+                else:
+                    need(launches["K9"] == launches["K9f"] == 0,
+                         f"read [{name}] {tag}: K9 launched with the knob "
+                         f"off")
+                out.setdefault(tag, set()).add(repr(sorted(rows)))
+                legs.append({"name": "read", "src": f"{name} {tag}",
+                             "launches": launches, "ms": ms})
+        need(all(len(r) == 1 for r in out.values()),
+             "read: the legs returned different results")
+        eng.settings.set("scan_device_filter", True)
+
+        # emb: ann_rows gaussian vectors, one row per partition
+        t0 = time.perf_counter()
+        m = rng.standard_normal((ann_rows, ANN_DIM)).astype(np.float32)
+        ecfs = eng.store("scan", "emb")
+        write_int_runs(ecfs, np.arange(ann_rows, dtype=np.int64),
+                       np.zeros(ann_rows, np.int64),
+                       m.astype(">f4").view(np.uint8).reshape(ann_rows, -1),
+                       SCAN_RUNS, ts)
+        idx = eng.indexes.get("scan", "emb", "v")
+        for r in ecfs.live_sstables():
+            idx.ensure_component(r)
+        print(f"read: built emb, {ann_rows} x {ANN_DIM} float32 in "
+              f"{SCAN_RUNS} sstables with their vector components in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        m64 = m.astype(np.float64)
+        queries = rng.standard_normal((3, ANN_DIM)).astype(np.float32)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        ann_ms = {}
+        t0 = time.perf_counter()
+        idx._gather()
+        ann_ms["gather"] = (time.perf_counter() - t0) * 1e3
+        checks = {}
+        for k in ANN_KS:
+            q = queries[0]
+            lit = "[" + ", ".join(repr(float(x)) for x in q) + "]"
+            t0 = time.perf_counter()
+            rows = s.execute(f"SELECT id FROM emb ORDER BY v ANN OF {lit} "
+                             f"LIMIT {k}").rows
+            ann_ms[f"cql cosine k={k}"] = (time.perf_counter() - t0) * 1e3
+            o_idx, _o_s, _nxt = ann_oracle(m64, q, k, "cosine")
+            need([r[0] for r in rows] == o_idx.tolist(),
+                 f"read: ANN cosine k={k} ids differ from the oracle")
+        for qi, sim in ((1, "dot"), (2, "euclidean"), (0, "cosine")):
+            for k in ANN_KS:
+                q = queries[qi]
+                t0 = time.perf_counter()
+                hits = idx.ann(q, k, sim)
+                ann_ms[f"direct {sim} k={k}"] = \
+                    (time.perf_counter() - t0) * 1e3
+                o_idx, o_s, nxt = ann_oracle(m64, q, k, sim)
+                got = [int.from_bytes(h[0], "big", signed=True)
+                       for h in hits]
+                tol = ANN_TOL[sim]
+                need(float(o_s[-1] - nxt) > tol,
+                     f"read: oracle {sim} k={k}: k-th and (k+1)-th scores "
+                     f"{o_s[-1]} and {nxt} within the tolerance {tol}")
+                need(got == o_idx.tolist(),
+                     f"read: ANN {sim} k={k} ids differ from the oracle")
+                e = float(np.abs(np.array([h[2] for h in hits]) - o_s).max())
+                need(e <= tol, f"read: ANN {sim} k={k}: scores {e} from "
+                               f"the oracle > {tol}")
+                checks[f"{sim} k={k}"] = e
+        torch.cuda.synchronize()
+        launches = {ids[k]: c for k, c in cuda_lib.launches().items()
+                    if k in ids}
+        by_size = {ids[k]: v2 for k, v2 in cuda_lib.launch_sizes().items()
+                   if k in ids and v2}
+        need(launches["K10"] == 2 + 3 * len(ANN_KS),
+             f"read: ANN launches {launches}")
+        for kid, by in by_size.items():
+            sizes.setdefault(kid, {})
+            for sz, c in by.items():
+                sizes[kid][sz] = sizes[kid].get(sz, 0) + c
+        print("  read [ann]: wall ms " + json.dumps(
+            {k2: round(v2, 1) for k2, v2 in ann_ms.items()})
+            + f"; K10 launches {launches['K10']}; ids equal to the "
+            f"float64 oracle for all {len(ann_ms) - 1} queries; max score "
+            "error of the direct ones " + json.dumps(checks), flush=True)
+        legs.append({"name": "read", "src": "ann", "launches": launches,
+                     "ms": ann_ms})
+        return {"sizes": sizes, "legs": legs}
+    finally:
+        eng.close()
+
+
 # -------------------------------------------------------------- report --
 
 SOURCES = {
@@ -962,6 +1457,12 @@ SOURCES = {
            "cassandra_tpu/ops/merge.py:607"),
     "K7": ("cassandra_tpu_torch/csrc/planes.cu",
            "cassandra_tpu/ops/merge.py:475"),
+    "K9": ("cassandra_tpu_torch/csrc/scanmask.cu",
+           "cassandra_tpu/ops/device_scan.py:339"),
+    "K9f": ("cassandra_tpu_torch/csrc/scanmask.cu",
+            "cassandra_tpu/ops/device_scan.py:366"),
+    "K10": ("cassandra_tpu_torch/csrc/ann.cu",
+            "cassandra_tpu/index/manager.py:284"),
 }
 
 
@@ -975,6 +1476,9 @@ LIBRARY_CALLS = {
     "K7": "torch.sort(stable=True) of an int64 key packed from the "
           "round's dense lexicographic ranks (the sort part only; "
           "packing untimed)",
+    "K9": "torch.eq(keys, q) (the eq op; every op's kernel time under "
+          "ops_ms)",
+    "K10": "torch.topk(m @ q, k) (dot, k = 10; every case under cases)",
 }
 
 
@@ -983,13 +1487,15 @@ def kernels_line(res: dict, e2e: dict) -> dict:
     max_abs_err over every size checked, each launched size's own
     numbers under "shapes", and the launches of each leg."""
     out = []
-    for kid, r in sorted(res.items()):
+    for kid, r in sorted(res.items(), key=lambda kv: kid_order(kv[0])):
         src, replaces = SOURCES[kid]
         seen = e2e["sizes"].get(kid) or dict.fromkeys(r["shapes"], 0)
         shapes = []
         for size in sorted(seen):
             s = r["shapes"][size]
-            extra = {k: s[k] for k in ("masks", "d2h_ms", "emit_ms")
+            extra = {k: s[k] for k in ("masks", "d2h_ms", "emit_ms",
+                                       "ops_ms", "cases", "selected",
+                                       "graph_ms", "library_graph_ms")
                      if k in s}
             shapes.append({
                 "size": size, "launches": seen[size],
@@ -1028,15 +1534,23 @@ def main(argv=None) -> int:
     planned = {kid: {ROUND_PAD} for kid in ROUND_KERNELS}
     planned["K4"] = planned["K5"] = {SEGMENT}
     planned["K6"] = planned["K7"] = set(PLANE_PADS)
+    planned["K9"] = planned["K9f"] = {SEGMENT}
+    planned["K10"] = {ANN_ROWS}
     phase_kernels(args.seed, planned, res)
     build_root = os.path.join(REPO, "cassandra_tpu_torch", "build")
     os.makedirs(build_root, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke-", dir=build_root)
     try:
         e2e = phase_e2e(args.seed, args.cells_per_run, work)
+        t0 = time.perf_counter()
+        read = phase_read(args.seed, SCAN_PARTITIONS, ANN_ROWS, work)
+        print(f"read: {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # 5. the kernels at every other size the main path launched
+    for kid, by in read["sizes"].items():
+        e2e["sizes"][kid] = by
+    e2e["legs"] += read["legs"]
+    # 6. the kernels at every other size the main paths launched
     seen = {kid: set(e2e["sizes"].get(kid, ())) for kid in KERNEL_NAMES}
     print("shapes: the main path launched " + json.dumps(
         {kid: sorted(v) for kid, v in seen.items()}), flush=True)

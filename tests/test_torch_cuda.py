@@ -129,3 +129,82 @@ def test_plane_programs_match_plain(n, N):
     after = cuda_lib.launch_sizes()
     for k in ("merge.plane_fast", "merge.plane_v2"):
         assert after[k].get(N, 0) == before[k].get(N, 0) + 1, k
+
+
+@pytest.mark.parametrize("n", [1, 4099, 65_536])
+def test_scan_mask_and_fold_match_plain(n):
+    """K9's eight ops (IN with 0 and several keys) and the fold, on keys
+    over the whole u64 range with the edge keys, exact."""
+    from cassandra_tpu_torch.ops import device_scan as ds
+    dev = _card()
+    rng = np.random.default_rng(n)
+    edges = np.array([0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1],
+                     dtype=np.uint64)
+    keys = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    keys[:min(n, 5)] = edges[:min(n, 5)]
+    kc, kp = ds.keys_tensor(keys, dev), ds.keys_tensor(keys, "cpu")
+    before = cuda_lib.launches()
+    cases = [(op, edges[[i]]) for op in ("eq", "ne", "lt", "ge", "gt", "le")
+             for i in range(5)]
+    cases += [("in", edges[:0]), ("in", edges[[0, 3, 4]]),
+              ("in", keys[:7]), ("all", edges[:0])]
+    for op, q in cases:
+        m = ds.scan_mask(kc, op, q)
+        assert torch.equal(m.cpu(), ds.scan_mask_plain(kp, op, q)), op
+        for mask in (m, torch.zeros_like(m), torch.ones_like(m)):
+            assert torch.equal(ds.scan_fold(kc, mask).cpu(),
+                               ds.scan_fold_plain(kp, mask.cpu())), op
+    after = cuda_lib.launches()
+    assert after["scan.mask"] == before["scan.mask"] + len(cases)
+    assert after["scan.fold"] == before["scan.fold"] + 3 * len(cases)
+
+
+@pytest.mark.parametrize("sim", ["cosine", "dot", "euclidean"])
+@pytest.mark.parametrize("n,d,k", [(1000, 128, 10), (5000, 7, 100),
+                                   (300, 64, 300)])
+def test_ann_topk_matches_plain(sim, n, d, k):
+    """K10 against its plain version: the same indices, scores within
+    1e-5 (float sums in another order), and exact ties (repeated rows)
+    lower index first."""
+    from cassandra_tpu_torch.ops import ann
+    dev = _card()
+    rng = np.random.default_rng(n + d)
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    m[n // 2:n // 2 + 5] = m[3]                 # ties with row 3
+    q = rng.standard_normal(d).astype(np.float32)
+    if sim == "cosine":
+        q /= np.linalg.norm(q)
+    for qq in (q, m[3].copy()):
+        mc = torch.from_numpy(m).to(dev)
+        qc = torch.from_numpy(qq).to(dev)
+        before = cuda_lib.launches()["index.ann"]
+        s, i = ann.ann_topk(mc, qc, k, sim)
+        assert cuda_lib.launches()["index.ann"] == before + 1
+        sp, ip = ann.ann_topk_plain(mc, qc, k, sim)
+        assert torch.equal(i, ip), (sim, n, d, k)
+        torch.testing.assert_close(s, sp, rtol=1e-5, atol=1e-5)
+
+
+def test_ann_limit_below_one_launches_nothing():
+    """k = 0 (LIMIT 0) gives no row and no launch; the wrapper takes
+    only 1 <= k <= n, as its plain version does."""
+    from cassandra_tpu_torch.index.manager import VectorIndex
+    from cassandra_tpu_torch.ops import ann
+    dev = _card()
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((64, 8)).astype(np.float32)
+    q = rng.standard_normal(8).astype(np.float32)
+    idx = object.__new__(VectorIndex)
+    keys = [(b"pk%d" % i, b"ck%d" % i) for i in range(len(m))]
+    idx.__dict__.update(_gather=lambda: (m, keys), device=dev,
+                        _device_cache=None)
+    before = cuda_lib.launches()["index.ann"]
+    for k in (0, -3):
+        assert idx.ann(q, k, "dot") == []
+    assert cuda_lib.launches()["index.ann"] == before
+    assert [h[:2] for h in idx.ann(q, 64, "dot")][0] in keys
+    assert cuda_lib.launches()["index.ann"] == before + 1
+    mc, qc = torch.from_numpy(m).to(dev), torch.from_numpy(q).to(dev)
+    for k in (0, 65):
+        with pytest.raises(ValueError, match="outside 1..64"):
+            ann.ann_topk(mc, qc, k, "dot")
