@@ -47,6 +47,35 @@ long radix_scratch_bytes(int n);
 // perm_tmp (int32[n]) is work space.
 void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
                      int* perm_tmp, void* scratch, cudaStream_t stream);
+// The same passes over n_seg segments of seg_len rows each, every
+// segment sorted inside its own rows [s * seg_len, (s + 1) * seg_len):
+// perm receives row indices of the whole array (the mesh step, K8).
+long radix_seg_scratch_bytes(int n_seg, int seg_len);
+void radix_sort_perm_seg(const SortKey* keys, int nk, int n_seg,
+                         int seg_len, int* perm, int* perm_tmp,
+                         void* scratch, cudaStream_t stream);
+
+// The reconcile of K2 (reconcile.cu) over a sort permutation of n rows
+// in segments of seg_len rows: a segment's first row starts a
+// partition whatever its lanes (seg_len = n for one round; the mesh
+// step's shards for K8). packed (u8[n]) receives the masks in sorted
+// order.
+struct RecIn {
+  const uint32_t* lanes;
+  const uint32_t* ts_h;
+  const uint32_t* ts_l;
+  const uint32_t* valid;
+  const int* ldt;
+  const uint32_t* expiring;
+  const uint32_t* cdel;
+  const uint32_t* death;
+  const uint32_t* purge_h;
+  const uint32_t* purge_l;
+};
+long reconcile_scratch_bytes(int n);
+void reconcile_seg(const RecIn& in, int K, const int* perm, int n,
+                   int seg_len, int now, int gc_before, uint8_t* packed,
+                   void* scratch, cudaStream_t stream);
 
 inline unsigned grid_for(long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);

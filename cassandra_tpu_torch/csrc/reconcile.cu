@@ -18,7 +18,11 @@
 // three scans: a boundary pass (reads rows i-1 and i through the
 // permutation), the scans, and one elementwise pass that evaluates the
 // rules at each sorted position. The rows are gathered through the
-// permutation, not materialised in sorted order.
+// permutation, not materialised in sorted order. `reconcile_seg` runs
+// the same passes over equal segments (the mesh step K8, mesh.cu): the
+// first row of every segment starts a partition and has no previous
+// row, as row 0 of a round has, so a full segment never reads its
+// neighbour's last row.
 #include "common.cuh"
 
 namespace ctpu {
@@ -30,11 +34,12 @@ constexpr uint32_t COL_ROW_DEL = 1;
 constexpr uint8_t B_PART = 1, B_ROW = 2, B_COL = 4, B_CELL = 8;
 
 __global__ void rec_bounds(const uint32_t* lanes, int K, const int* perm,
-                           int n, uint8_t* bnd, int* ps, int* rs, int* cs) {
+                           int n, int seg_len, uint8_t* bnd, int* ps,
+                           int* rs, int* cs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   bool part = true, row = true, col = true, cell = true;
-  if (i > 0) {
+  if (i % seg_len != 0) {
     const uint32_t* a = lanes + (long)perm[i] * K;
     const uint32_t* b = lanes + (long)perm[i - 1] * K;
     bool d_part = false, d_row = false, d_cell = false;
@@ -54,22 +59,10 @@ __global__ void rec_bounds(const uint32_t* lanes, int K, const int* perm,
   cs[i] = col ? i : 0;
 }
 
-struct RecIn {
-  const uint32_t* lanes;
-  const uint32_t* ts_h;
-  const uint32_t* ts_l;
-  const uint32_t* valid;
-  const int* ldt;
-  const uint32_t* expiring;
-  const uint32_t* cdel;
-  const uint32_t* death;
-  const uint32_t* purge_h;
-  const uint32_t* purge_l;
-};
-
-__global__ void rec_final(RecIn in, int K, const int* perm, int n, int now,
-                          int gc_before, const uint8_t* bnd, const int* ps,
-                          const int* rs, const int* cs, uint8_t* packed) {
+__global__ void rec_final(RecIn in, int K, const int* perm, int n,
+                          int seg_len, int now, int gc_before,
+                          const uint8_t* bnd, const int* ps, const int* rs,
+                          const int* cs, uint8_t* packed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int p = perm[i];
@@ -122,7 +115,7 @@ __global__ void rec_final(RecIn in, int K, const int* perm, int n, int now,
   const bool keep = cell_new && valid && !shadowed && !purged;
 
   bool same_ts = false;
-  if (i > 0) {
+  if (i % seg_len != 0) {
     const int q = perm[i - 1];
     same_ts = in.ts_h[q] == th && in.ts_l[q] == tl;
   }
@@ -132,14 +125,37 @@ __global__ void rec_final(RecIn in, int K, const int* perm, int n, int now,
 }
 
 }  // namespace
+
+long reconcile_scratch_bytes(int n) {
+  // bnd (n bytes, padded to 16) + ps, rs, cs (int32[n] each) + scan
+  const long bnd = ((long)n + 15) / 16 * 16;
+  return bnd + (3L * n + scan_scratch_elems(n)) * (long)sizeof(int);
+}
+
+void reconcile_seg(const RecIn& in, int K, const int* perm, int n,
+                   int seg_len, int now, int gc_before, uint8_t* packed,
+                   void* scratch, cudaStream_t s) {
+  uint8_t* bnd = (uint8_t*)scratch;
+  int* ps = (int*)(bnd + ((long)n + 15) / 16 * 16);
+  int* rs = ps + n;
+  int* cs = rs + n;
+  int* scan_scr = cs + n;
+  const unsigned g = grid_for(n, 256);
+  rec_bounds<<<g, 256, 0, s>>>(in.lanes, K, perm, n, seg_len, bnd, ps, rs,
+                               cs);
+  scan_max_inclusive(ps, ps, n, scan_scr, s);
+  scan_max_inclusive(rs, rs, n, scan_scr, s);
+  scan_max_inclusive(cs, cs, n, scan_scr, s);
+  rec_final<<<g, 256, 0, s>>>(in, K, perm, n, seg_len, now, gc_before, bnd,
+                              ps, rs, cs, packed);
+}
+
 }  // namespace ctpu
 
 using namespace ctpu;
 
 extern "C" long ctpu_reconcile_scratch_bytes(int n) {
-  // bnd (n bytes, padded to 16) + ps, rs, cs (int32[n] each) + scan
-  const long bnd = ((long)n + 15) / 16 * 16;
-  return bnd + (3L * n + scan_scratch_elems(n)) * (long)sizeof(int);
+  return reconcile_scratch_bytes(n);
 }
 
 // packed (u8[n]) receives the masks in sorted order.
@@ -153,20 +169,9 @@ extern "C" int ctpu_reconcile(const uint32_t* lanes, int K,
                               int gc_before, const int* perm, int n,
                               uint8_t* packed, void* scratch,
                               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  uint8_t* bnd = (uint8_t*)scratch;
-  int* ps = (int*)(bnd + ((long)n + 15) / 16 * 16);
-  int* rs = ps + n;
-  int* cs = rs + n;
-  int* scan_scr = cs + n;
-  const unsigned g = grid_for(n, 256);
-  rec_bounds<<<g, 256, 0, s>>>(lanes, K, perm, n, bnd, ps, rs, cs);
-  scan_max_inclusive(ps, ps, n, scan_scr, s);
-  scan_max_inclusive(rs, rs, n, scan_scr, s);
-  scan_max_inclusive(cs, cs, n, scan_scr, s);
   RecIn in{lanes, ts_h, ts_l, valid, ldt, expiring, cdel, death,
            purge_h, purge_l};
-  rec_final<<<g, 256, 0, s>>>(in, K, perm, n, now, gc_before, bnd, ps, rs,
-                              cs, packed);
+  reconcile_seg(in, K, perm, n, n, now, gc_before, packed, scratch,
+                (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,12 @@
 //
 // The passes (`radix_sort_perm`) also serve the plane programs K6 and
 // K7 (planes.cu), whose keys are 1, 2 or 4 bytes wide: a key costs one
-// pass per byte, so K1's 32-bit keys keep their four passes each.
+// pass per byte, so K1's 32-bit keys keep their four passes each. The
+// segmented form (`radix_sort_perm_seg`) sorts S equal segments of the
+// rows in the same passes, each inside its own rows: the mesh step K8
+// (mesh.cu). A tile never crosses a segment's edge, and the histogram
+// table is segment-major, so the one scan per pass gives every segment
+// its rows' offsets with no key pass spent on the segment id.
 #include "common.cuh"
 
 namespace ctpu {
@@ -58,39 +63,58 @@ __device__ __forceinline__ int digit_of(const SortKey& k, int shift,
   return (int)(((v ^ k.xmask) >> shift) & (RADIX - 1));
 }
 
+// Tile t of the pass is tile t % tps of segment t / tps: rows
+// [base, end) below, never across a segment's edge. Its histogram and
+// offsets sit at hist[(segment * RADIX + digit) * tps + tile], so one
+// exclusive scan of the table places every segment's rows inside the
+// segment's own range (each segment holds seg_len rows).
+struct Tile {
+  int seg, tile, base, end;
+};
+
+__device__ __forceinline__ Tile tile_of(int seg_len, int tps) {
+  Tile t;
+  t.seg = blockIdx.x / tps;
+  t.tile = blockIdx.x % tps;
+  const int seg0 = t.seg * seg_len;
+  t.base = seg0 + t.tile * SORT_TILE;
+  t.end = seg0 + min((t.tile + 1) * SORT_TILE, seg_len);
+  return t;
+}
+
 __global__ void __launch_bounds__(SORT_THREADS)
-digit_hist(SortKey key, int shift, const int* perm, int n, int tiles,
+digit_hist(SortKey key, int shift, const int* perm, int seg_len, int tps,
            int* hist) {
   __shared__ int h[RADIX];
   const int tid = threadIdx.x;
   h[tid] = 0;
   __syncthreads();
-  const int base = blockIdx.x * SORT_TILE;
+  const Tile t = tile_of(seg_len, tps);
   for (int r = 0; r < SORT_ROUNDS; ++r) {
-    const int i = base + r * SORT_THREADS + tid;
-    if (i < n) atomicAdd(&h[digit_of(key, shift, perm[i])], 1);
+    const int i = t.base + r * SORT_THREADS + tid;
+    if (i < t.end) atomicAdd(&h[digit_of(key, shift, perm[i])], 1);
   }
   __syncthreads();
-  hist[tid * tiles + blockIdx.x] = h[tid];
+  hist[((long)t.seg * RADIX + tid) * tps + t.tile] = h[tid];
 }
 
 __global__ void __launch_bounds__(SORT_THREADS)
 digit_scatter(SortKey key, int shift, const int* perm_in, int* perm_out,
-              int n, int tiles, const int* offs) {
+              int seg_len, int tps, const int* offs) {
   __shared__ int run[RADIX];
   __shared__ int wcnt[SORT_WARPS][RADIX];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int w = tid >> 5;
   const unsigned lt_mask = (1u << lane) - 1u;
-  run[tid] = offs[tid * tiles + blockIdx.x];
-  const int base = blockIdx.x * SORT_TILE;
+  const Tile t = tile_of(seg_len, tps);
+  run[tid] = offs[((long)t.seg * RADIX + tid) * tps + t.tile];
   for (int r = 0; r < SORT_ROUNDS; ++r) {
     for (int j = tid; j < SORT_WARPS * RADIX; j += SORT_THREADS)
       (&wcnt[0][0])[j] = 0;
     __syncthreads();
-    const int i = base + r * SORT_THREADS + tid;
-    const bool valid = i < n;
+    const int i = t.base + r * SORT_THREADS + tid;
+    const bool valid = i < t.end;
     const int p = valid ? perm_in[i] : 0;
     // out-of-range lanes take digit RADIX: they match only each other
     const int d = valid ? digit_of(key, shift, p) : RADIX;
@@ -114,27 +138,32 @@ digit_scatter(SortKey key, int shift, const int* perm_in, int* perm_out,
 
 }  // namespace
 
-long radix_scratch_bytes(int n) {
-  const long tiles = (n + SORT_TILE - 1) / SORT_TILE;
-  const long hist = (long)RADIX * tiles;
+long radix_seg_scratch_bytes(int n_seg, int seg_len) {
+  const long tps = (seg_len + SORT_TILE - 1) / SORT_TILE;
+  const long hist = (long)RADIX * n_seg * tps;
   return (hist + scan_scratch_elems(hist)) * (long)sizeof(int);
 }
 
-void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
-                     int* perm_tmp, void* scratch, cudaStream_t s) {
-  const int tiles = (n + SORT_TILE - 1) / SORT_TILE;
+long radix_scratch_bytes(int n) { return radix_seg_scratch_bytes(1, n); }
+
+void radix_sort_perm_seg(const SortKey* keys, int nk, int n_seg,
+                         int seg_len, int* perm, int* perm_tmp,
+                         void* scratch, cudaStream_t s) {
+  const int n = n_seg * seg_len;
+  const int tps = (seg_len + SORT_TILE - 1) / SORT_TILE;
+  const long hist_n = (long)RADIX * n_seg * tps;
   int* hist = (int*)scratch;
-  int* scan_scr = hist + (long)RADIX * tiles;
+  int* scan_scr = hist + hist_n;
   iota<<<grid_for(n, 256), 256, 0, s>>>(perm, n);
   int* a = perm;
   int* b = perm_tmp;
   for (int q = 0; q < nk; ++q) {
     for (int shift = 0; shift < 8 * keys[q].width; shift += 8) {
-      digit_hist<<<tiles, SORT_THREADS, 0, s>>>(keys[q], shift, a, n, tiles,
-                                                hist);
-      scan_add_exclusive(hist, hist, (long)RADIX * tiles, scan_scr, s);
-      digit_scatter<<<tiles, SORT_THREADS, 0, s>>>(keys[q], shift, a, b, n,
-                                                   tiles, hist);
+      digit_hist<<<n_seg * tps, SORT_THREADS, 0, s>>>(keys[q], shift, a,
+                                                      seg_len, tps, hist);
+      scan_add_exclusive(hist, hist, hist_n, scan_scr, s);
+      digit_scatter<<<n_seg * tps, SORT_THREADS, 0, s>>>(
+          keys[q], shift, a, b, seg_len, tps, hist);
       int* t = a;
       a = b;
       b = t;
@@ -144,6 +173,11 @@ void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
   if (a != perm)
     cudaMemcpyAsync(perm, a, (size_t)n * sizeof(int),
                     cudaMemcpyDeviceToDevice, s);
+}
+
+void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
+                     int* perm_tmp, void* scratch, cudaStream_t s) {
+  radix_sort_perm_seg(keys, nk, 1, n, perm, perm_tmp, scratch, s);
 }
 
 }  // namespace ctpu

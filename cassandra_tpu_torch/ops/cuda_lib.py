@@ -13,7 +13,7 @@ version), so a run can show that its main path went through the
 kernels: `reset_launches()` before, `launches()` after.
 `launch_sizes()` splits each count by the launch's size (the padded
 round N for K1-K3, K6 and K7, the segment's cells for K4 and K5, the
-keys for K9, the matrix rows for K10), so
+keys for K9, the matrix rows for K10, the (shards, N) pair for K8), so
 a check can cover every shape the path launched.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("scan.cu", "sort.cu", "reconcile.cu", "compact.cu", "meta.cu",
-           "lzscan.cu", "planes.cu", "scanmask.cu", "ann.cu")
+           "lzscan.cu", "planes.cu", "scanmask.cu", "ann.cu", "mesh.cu")
 HEADERS = ("common.cuh",)
 LIB = os.path.join(BUILD_DIR, "libctpu_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -37,7 +37,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 KERNELS = ("merge.sort_perm", "merge.reconcile", "write.compact_gather",
            "write.meta_block", "write.segment_scan",
            "merge.plane_fast", "merge.plane_v2", "scan.mask", "scan.fold",
-           "index.ann")
+           "index.ann", "mesh.sharded_step")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCH_SIZES: dict[str, dict[int, int]] = {k: {} for k in KERNELS}
 _count_lock = threading.Lock()
@@ -176,6 +176,9 @@ _SIGNATURES = {
     "ctpu_scan_fold": (_I, [_P, _P, _I, _P, _P, _P]),
     "ctpu_ann_scratch_bytes": (_L, [_I, _I]),
     "ctpu_ann_topk": (_I, [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "ctpu_mesh_scratch_bytes": (_L, [_I, _I]),
+    "ctpu_mesh_step": (_I, [_P, _I] + [_P] * 9 + [_I, _I, _I, _I]
+                       + [_P] * 6),
 }
 
 

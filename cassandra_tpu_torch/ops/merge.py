@@ -311,6 +311,15 @@ def reconcile_kernel(operands, perm) -> torch.Tensor:
 reconcile_kernel = _kprof.wrap("merge.reconcile", reconcile_kernel)
 
 
+def merge_reconcile_kernel(operands):
+    """K1 then K2 on one round (the JAX package's single-call form, the
+    body of a mesh shard's program). Returns (perm int32[N], packed
+    u8[N]): bit0 keep, bit1 ambiguous, bit2 expired, bit3 shadowed."""
+    perm = device_sort_perm(operands)
+    packed = reconcile_kernel(operands, perm)
+    return perm, packed
+
+
 # ------------------------------------- compressed key-plane path (v2) -------
 #
 # The v2 round pushes a compressed key stream instead of the full

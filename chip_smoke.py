@@ -27,7 +27,9 @@ result line:
               and fold, on 65,536 u64 keys with the edge keys; K10, vector
               search, on a 1,000,000 x 128 gaussian matrix for the three
               similarities and k = 10 and 100 (equal indices, scores
-              within ANN_TOL).
+              within ANN_TOL); K8, the mesh step, on [4, 2^20]
+              synthetic shards (a full and an empty shard, two full
+              shards of one hot cell side by side).
   4. e2e      the compaction paths, on input sstables in bench.py's
               `stcs` shape (4 runs, 4,096 partitions, clustering
               1..9,999, 64 B random blob values, ts in [1, 2^40), LZ4
@@ -49,7 +51,8 @@ result line:
               split the launches by size (padded round N, segment cells).
   5. read     the CQL read path: Session over StorageEngine(device=
               "cuda"). scan.events (k int, c int, v int, PRIMARY KEY
-              (k, c)): 1,000,000 partitions x 10 rows, v uniform over
+              (k, c)): 500,000 partitions (a READ_PARTITIONS_CUT-th of
+              1,000,000) x 10 rows, v uniform over
               the int range, bulk-written as 4 sstables; (a) SELECT k,
               c, v ... WHERE v = ? and (b) SELECT count(*), min(v),
               max(v), sum(v) ... WHERE v < ? (1% of the cells), ALLOW
@@ -68,10 +71,24 @@ result line:
               ANN_TOL, the oracle's k-th and (k+1)-th scores further
               apart than it. Wall ms per query and the launches are
               printed.
-  6. shapes   phase 3 again at every size the main paths launched that
+  6. mesh     the token-range-sharded compaction step
+              (parallel/mesh.py), the counterpart of the JAX package's
+              dryrun_multichip, on S shards sharing the card
+              (Mesh([cuda:0] * S)): the uniform 8k case at S = 2 and 4,
+              the skewed 1M round (2 x 524,288 cells, 4,096
+              partitions, 40% in two) at S = 4, and phase 4's 10M-cell
+              inputs read back, at S = 4 and on make_mesh(device
+              count). Each case: the sharded merge equals the host
+              merge (lanes, ts, payload), one sstable per non-empty
+              shard reads back to its cell count, shard imbalance <=
+              1.2, and the one-program step (K8 over shard_batch) gives
+              the per-device path's perm and keep. The counters are
+              reset before the cases and read after; then K8 is timed
+              on each case's own operands.
+  7. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
               its partition's end pads to 2^20; the scan mask's segment
-              remainders and the fold's candidate count).
+              remainders and the fold's candidate count; K8's [S, N]).
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel: route, source, the JAX function it replaces, launches over the
@@ -111,14 +128,18 @@ STCS_CELLS_PER_RUN = 2_500_000       # BASELINE.json config 1: n = 10M
 STCS_PARTITIONS = 4096
 VALUE_BYTES = 64
 # the default-configuration leg (K5) runs on its own cut input: its
-# host payload scans take seconds per segment (PERF.md section 5)
-COMPRESS_LEG_CUT = 4
+# host payload scans take seconds per segment (PERF.md section 5); an
+# eighth since the mesh phase joined, to keep the smoke under 600 s
+COMPRESS_LEG_CUT = 8
 # the read cells: scan.events (10 rows per partition) and emb
 # the engine's mesh lanes (`compaction_mesh_devices`) in the read phase's
 # first three legs: with none (the default, the fourth leg), Phase B
 # merges each candidate partition on its own (PERF.md section 5)
 READ_MESH_LANES = 2
 SCAN_PARTITIONS = 1_000_000
+# the read phase runs on half the partitions since the mesh phase
+# joined, to keep the smoke under 600 s (printed as `reduced`)
+READ_PARTITIONS_CUT = 2
 SCAN_ROWS = 10
 SCAN_RUNS = 4
 SCAN_SELECTIVITY = 0.01
@@ -451,7 +472,11 @@ def check_round(seed: int, N: int, res: dict) -> None:
     from cassandra_tpu_torch.ops import merge as dm
 
     n, K = round_cells_for(N), LANES
-    ops = dm.operands_to_device(make_round(seed, n, N, K), torch.device(DEVICE))
+    # about one identity per cell, so a small round holds duplicates
+    # (the ambiguous bit) as the planned round does
+    parts = min(STCS_PARTITIONS, max(8, n // 64))
+    ops = dm.operands_to_device(make_round(seed, n, N, K, parts),
+                                torch.device(DEVICE))
 
     # K1 sort
     perm = dm.device_sort_perm(ops)
@@ -807,13 +832,93 @@ def check_ann(seed: int, n: int, res: dict, d: int = ANN_DIM) -> None:
            ops=ann_ops(n, d, "dot"))
 
 
+def mesh_shard_kinds(S: int) -> list:
+    """The shards of a synthetic K8 step: a full shard (count == N) and
+    an empty one at every S > 1, and from S = 3 on two full shards of
+    one hot cell each (equal lanes across the shard edge, with no pad
+    row between them) before the empty, full and partial ones."""
+    if S == 1:
+        return ["full"]
+    if S == 2:
+        return ["full", "empty"]
+    head = ["hot", "hot", "empty", "full"]
+    return (head + ["partial"] * S)[:S]
+
+
+def make_mesh_operands(seed: int, S: int, N: int) -> dict:
+    """[S, N] operands of the mesh step (shard_batch's layout, numpy):
+    each shard a make_round of its kind's cell count padded to N."""
+    shards = []
+    for s, kind in enumerate(mesh_shard_kinds(S)):
+        n = {"empty": 0, "partial": N // 2 + 7 * s + 1}.get(kind, N)
+        r = make_round(seed + (0 if kind == "hot" else s), n, N)
+        if kind == "hot":
+            r["lanes"][:] = r["lanes"][0]
+        shards.append(r)
+    cols = ("lanes", "valid", "ts_h", "ts_l", "death", "cdel", "ldt",
+            "expiring", "purge_h", "purge_l")
+    ops = {k: np.stack([r[k] for r in shards]) for k in cols}
+    ops["now"], ops["gc_before"] = shards[0]["now"], shards[0]["gc_before"]
+    return ops
+
+
+def mesh_step_bytes(S: int, N: int, K: int = LANES) -> int:
+    """K8's bytes moved once: the operands read (lanes, nine u32/i32
+    columns) and perm and packed written, plus the stats."""
+    return S * N * (4 * K + 9 * 4 + 4 + 1) + 16 * (S + 1)
+
+
+def check_mesh(seed: int, size: tuple, res: dict) -> None:
+    """K8 against its plain version on a synthetic [S, N] step with a
+    full and an empty shard; exact perm, packed and stats; warm times;
+    the library time of torch.sort(key, dim=1, stable=True) over a
+    packed [S, N] rank key."""
+    from cassandra_tpu_torch.ops import merge as dm
+    from cassandra_tpu_torch.parallel import mesh as pm
+
+    S, N = size
+    ops = dm.operands_to_device(make_mesh_operands(seed, S, N),
+                                torch.device(DEVICE))
+    perm, packed, stats = pm.sharded_step(ops)
+    perm_p, packed_p, stats_p = pm.sharded_step_plain(ops)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(perm, perm_p), max_abs_err(packed, packed_p),
+              max_abs_err(stats, stats_p))
+    need(err == 0, f"K8 mesh step at {size}: kernel != plain "
+                   f"(max abs err {err})")
+    kept = int((packed & 1).sum())
+    live = int((ops["valid"] == 0).sum())
+    need(stats.tolist() == [kept, live - kept],
+         f"K8 at {size}: stats {stats.tolist()} != ({kept}, "
+         f"{live - kept})")
+    key = packed_sort_key({"lanes": ops["lanes"].reshape(S * N, -1),
+                           **{k: ops[k].reshape(-1)
+                              for k in ("valid", "ts_h", "ts_l")}})
+    lib_ms = None
+    if key is not None:
+        key = key.view(S, N)
+        lib_perm = torch.sort(key, dim=1, stable=True).indices
+        need(bool((lib_perm.to(torch.int32) == perm).all()),
+             "K8: torch.sort of the packed key disagrees")
+        lib_ms = cuda_ms(lambda: torch.sort(key, dim=1, stable=True),
+                         reps=3)
+    print(f"  mesh step {S} x {N}: shards "
+          f"{mesh_shard_kinds(S)}, kept {kept}, dropped {live - kept}",
+          flush=True)
+    _entry(res, "K8", "mesh.sharded_step", size, err=err,
+           ms=cuda_ms(lambda: pm.sharded_step(ops), reps=3),
+           plain_ms=cuda_ms(lambda: pm.sharded_step_plain(ops), reps=1,
+                            warm=1),
+           library_ms=lib_ms, bytes=mesh_step_bytes(S, N))
+
+
 ROUND_KERNELS = ("K1", "K2", "K3")
 PLANE_KERNELS = ("K6", "K7")
 KERNEL_NAMES = {"K1": "merge.sort_perm", "K2": "merge.reconcile",
                 "K3": "write.compact_gather", "K4": "write.meta_block",
                 "K5": "write.segment_scan", "K6": "merge.plane_fast",
-                "K7": "merge.plane_v2", "K9": "scan.mask",
-                "K9f": "scan.fold", "K10": "index.ann"}
+                "K7": "merge.plane_v2", "K8": "mesh.sharded_step",
+                "K9": "scan.mask", "K9f": "scan.fold", "K10": "index.ann"}
 
 
 def kid_order(kid: str) -> tuple:
@@ -874,6 +979,8 @@ def phase_kernels(seed: int, sizes: dict, res: dict) -> None:
         check_scan(seed, seg_n, res)
     for N in sorted(set().union(*(todo[k] for k in PLANE_KERNELS))):
         check_planes(seed, N, res)
+    for size in sorted(todo["K8"]):
+        check_mesh(seed, size, res)
     for n in sorted(todo["K9"]):
         check_scanmask(seed, n, res)
     for n in sorted(todo["K9f"]):
@@ -1195,7 +1302,7 @@ def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
             for size, c in by.items():
                 sizes.setdefault(kid, {})
                 sizes[kid][size] = sizes[kid].get(size, 0) + c
-    return {"sizes": sizes, "legs": legs}
+    return {"sizes": sizes, "legs": legs, "table": table}
 
 
 # ------------------------------------------------------------- 5. read --
@@ -1440,6 +1547,250 @@ def phase_read(seed: int, partitions: int, ann_rows: int, work: str) -> dict:
         eng.close()
 
 
+# ------------------------------------------------------------- 6. mesh --
+
+MESH_SHARDS = 4
+MESH_UNIFORM = (4096, 64, (2, 4))     # cells per batch, partitions, S
+MESH_SKEWED = (524_288, 4096)         # cells per batch, partitions
+MESH_IMBALANCE = 1.2
+
+
+def mesh_table():
+    from cassandra_tpu_torch.schema import make_table
+    return make_table("bench", "t", pk=["id"], ck=["c"],
+                      cols={"id": "int", "c": "int", "v": "blob"})
+
+
+def uniform_batch(table, n_cells: int, n_parts: int, seed: int):
+    """The JAX dryrun's uniform batch (__graft_entry__._example_operands)."""
+    from cassandra_tpu_torch.tools import bulk
+    rng = np.random.default_rng(seed)
+    return bulk.build_int_batch(
+        table, rng.integers(0, n_parts, n_cells),
+        rng.integers(1, 50, n_cells),
+        rng.integers(97, 122, (n_cells, 16), dtype=np.uint8),
+        rng.integers(1, 1000, n_cells).astype(np.int64))
+
+
+def skewed_batch(table, n_cells: int, n_parts: int, seed: int):
+    """The JAX dryrun's skewed batch (__graft_entry__._skewed_batch):
+    about 40% of the cells in 2 hot partitions."""
+    from cassandra_tpu_torch.tools import bulk
+    rng = np.random.default_rng(seed)
+    hot = rng.random(n_cells) < 0.4
+    pk = np.where(hot, rng.integers(0, 2, n_cells),
+                  rng.integers(2, n_parts, n_cells))
+    return bulk.build_int_batch(
+        table, pk, rng.integers(1, 10_000, n_cells),
+        rng.integers(97, 122, (n_cells, 16), dtype=np.uint8),
+        rng.integers(1, 1 << 40, n_cells).astype(np.int64))
+
+
+def mesh_case(label: str, table, mesh, batches: list, work: str,
+              ref=None, warm: bool = True) -> dict:
+    """The JAX dryrun's four checks on one mesh: the sharded merge equals
+    the host merge (lanes, ts, payload), one sstable per non-empty shard
+    reads back to the same cell count, shard imbalance <= 1.2, and the
+    one-program step (K8) over shard_batch gives the per-device path's
+    perm and, after the same host tie-break, its keep."""
+    from cassandra_tpu_torch.ops.merge import host_tiebreak, unpack_masks
+    from cassandra_tpu_torch.parallel import mesh as pm
+    from cassandra_tpu_torch.storage import cellbatch as cb
+    from cassandra_tpu_torch.storage.sstable.reader import SSTableReader
+
+    S = mesh.devices.size
+    cat = cb.CellBatch.concat(batches)
+    if warm:
+        pm.materialize_sharded_merge(cat, mesh)
+    walls: list = []
+    disp: list = []
+    t0 = time.perf_counter()
+    shards = pm.materialize_sharded_merge(cat, mesh, walls_out=walls,
+                                          dispatch_out=disp)
+    t_merge = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if ref is None:
+        ref = cb.merge_sorted(batches)
+    t_host = time.perf_counter() - t0
+    merged = cb.CellBatch.concat([x for x in shards if len(x)])
+    need(len(merged) == len(ref),
+         f"{label}: sharded merge kept {len(merged)}, host {len(ref)}")
+    for f in ("lanes", "ts", "payload"):
+        need(np.array_equal(getattr(merged, f), getattr(ref, f)),
+             f"{label}: sharded merge {f} != host merge")
+    del merged
+    sizes = [len(x) for x in shards]
+    imb = pm.shard_imbalance(sizes)
+    need(imb <= MESH_IMBALANCE, f"{label}: shard imbalance {imb} "
+                                f"(sizes {sizes})")
+    d = os.path.join(work, f"mesh-{label}")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    results = pm.sharded_compact_to_sstables(batches, table, mesh, d,
+                                             shards=shards)
+    t_write = time.perf_counter() - t0
+    del shards
+    need(len(results) == sum(1 for n in sizes if n),
+         f"{label}: {len(results)} sstables for shards {sizes}")
+    total = 0
+    for desc, _stats in results:
+        r = SSTableReader(desc)
+        total += sum(len(seg) for seg in r.scanner())
+        r.close()
+    need(total == len(ref), f"{label}: read back {total} cells of "
+                            f"{len(ref)}")
+    shutil.rmtree(d)
+
+    ops, _shard_of, _pos, members = pm.shard_batch(cat, S)
+    perm, packed, stats = pm.sharded_merge_step(mesh)(ops)
+    perm, packed = perm.cpu().numpy(), packed.cpu().numpy()
+    keep_d, perm_d, stats_d, _, _ = pm.run_sharded_merge(cat, mesh)
+    raw_kept = amb_cells = 0
+    for s in range(S):
+        c = len(members[s])
+        need(np.array_equal(perm[s, :c], perm_d[s, :c]),
+             f"{label}: step perm != per-device perm in shard {s}")
+        need(not (packed[s, c:] & 1).any(), f"{label}: a pad row kept")
+        keep, amb, expired, shadowed = unpack_masks(packed[s, :c])
+        raw_kept += int(keep.sum())
+        amb_cells += int(amb.sum())
+        if amb.any():
+            host_tiebreak(cat, members[s][perm[s, :c]], keep, amb,
+                          shadowed, expired, 0, None)
+        need(np.array_equal(keep, keep_d[s, :c]),
+             f"{label}: step keep != per-device keep in shard {s}")
+    need(stats.tolist() == [raw_kept, len(cat) - raw_kept],
+         f"{label}: step stats {stats.tolist()}, masks {raw_kept}")
+    need(stats_d.tolist() == [len(ref), len(cat) - len(ref)],
+         f"{label}: sharded stats {stats_d.tolist()}, host {len(ref)}")
+
+    # overlap: each live shard's merge alone, over the concurrent wall
+    devices = pm._mesh_devices(mesh)
+    solo = []
+    for s in range(S):
+        if len(members[s]):
+            o = pm._pack_shard_operands(cat, members[s], 0, 0)
+            t0 = time.perf_counter()
+            pm._merge_on(o, devices[s])
+            solo.append(time.perf_counter() - t0)
+    return {"case": label, "shards": S, "cells_in": len(cat),
+            "cells_kept": len(ref), "shard_sizes": sizes,
+            "imbalance_max_mean": imb, "sstables": len(results),
+            "merge_wall_s": t_merge, "host_merge_s": t_host,
+            "write_s": t_write, "device_walls_s": walls,
+            "dispatch_s": disp[0], "solo_walls_s": solo,
+            "overlap_factor": sum(solo) / disp[0] if disp[0] else 1.0,
+            "step": [S, int(ops["valid"].shape[1])],
+            "step_stats": stats.tolist(), "sharded_stats": stats_d.tolist(),
+            "ambiguous": amb_cells, "_ops": ops, "_ref": ref}
+
+
+def read_runs(directory: str, table) -> list:
+    """The cells of every sstable under `directory`, one batch per run."""
+    from cassandra_tpu_torch.storage import cellbatch as cb
+    from cassandra_tpu_torch.storage.table import ColumnFamilyStore
+
+    cfs = ColumnFamilyStore(table, directory, commitlog=None)
+    cfs.reload_sstables()
+    out = []
+    for r in sorted(cfs.live_sstables(), key=lambda r: r.desc.generation):
+        out.append(cb.CellBatch.concat(list(r.scanner())))
+        r.close()
+    return out
+
+
+def phase_mesh(seed: int, work: str, stcs_tbl,
+               skewed_cells: int = MESH_SKEWED[0]) -> dict:
+    """The sharded compaction step (parallel/mesh.py), the counterpart of
+    __graft_entry__.dryrun_multichip, on meshes of shards that share the
+    card (Mesh([cuda:0] * S)): the uniform 8k case at S = 2 and 4, the
+    skewed-1M round at S = 4, then the stcs-10M inputs of phase 4 read
+    back (`stcs_tbl`, phase 4's table), at S = 4 and on
+    make_mesh(device_count). The launch counters
+    are reset before the cases and read after them; K8's time on each
+    case's own operands is taken after that."""
+    from cassandra_tpu_torch.ops import cuda_lib
+    from cassandra_tpu_torch.ops import merge as dm
+    from cassandra_tpu_torch.parallel import mesh as pm
+
+    one = torch.device(DEVICE)
+    table = mesh_table()
+    ids = {name: kid for kid, name in KERNEL_NAMES.items()}
+    if skewed_cells != MESH_SKEWED[0]:
+        print(json.dumps({"reduced": {"case": "skewed", "cells_per_batch":
+                                      skewed_cells,
+                                      "published": MESH_SKEWED[0]}}))
+    n_u, p_u, widths = MESH_UNIFORM
+    uni = [uniform_batch(table, n_u, p_u, 0), uniform_batch(table, n_u, p_u, 1)]
+    skew = [skewed_batch(table, skewed_cells, MESH_SKEWED[1], sd)
+            for sd in (2, 3)]
+    t0 = time.perf_counter()
+    stcs = read_runs(os.path.join(work, "stcs"), stcs_tbl)
+    print(f"mesh: read back stcs, {[len(b) for b in stcs]} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cases = [(f"uniform-8k-{S}", table, pm.Mesh([one] * S), uni, {})
+             for S in widths]
+    cases.append((f"skewed-1M-{MESH_SHARDS}", table,
+                  pm.Mesh([one] * MESH_SHARDS), skew, {}))
+    cases.append((f"stcs-10M-{MESH_SHARDS}", stcs_tbl,
+                  pm.Mesh([one] * MESH_SHARDS), stcs, {"warm": False}))
+    mesh_all = pm.make_mesh(torch.cuda.device_count(), device=DEVICE)
+    cases.append((f"stcs-10M-make_mesh({mesh_all.devices.size})",
+                  stcs_tbl, mesh_all, stcs, {"warm": False}))
+    reports, legs, sizes = [], [], {}
+    ref10 = None
+    cuda_lib.reset_launches()
+    for label, tbl, mesh, batches, kw in cases:
+        before = cuda_lib.launches()
+        sizes0 = cuda_lib.launch_sizes()
+        t0 = time.perf_counter()
+        rep = mesh_case(label, tbl, mesh, batches, work,
+                        ref=ref10 if batches is stcs else None, **kw)
+        rep["case_s"] = time.perf_counter() - t0
+        ref = rep.pop("_ref")
+        if batches is stcs:
+            ref10 = ref
+        after = cuda_lib.launches()
+        sizes1 = cuda_lib.launch_sizes()
+        launches = {ids[k]: after[k] - before[k] for k in after
+                    if k in ids and after[k] > before[k]}
+        rep["launches"] = launches
+        print("  " + json.dumps({k: v for k, v in rep.items()
+                                 if not k.startswith("_")}), flush=True)
+        reports.append(rep)
+        legs.append({"name": "mesh", "src": label, "launches": launches})
+        for k, by in sizes1.items():
+            if k in ids:
+                for size, c in by.items():
+                    d = c - sizes0[k].get(size, 0)
+                    if d:
+                        sizes.setdefault(ids[k], {})
+                        sizes[ids[k]][size] = sizes[ids[k]].get(size, 0) + d
+    total = cuda_lib.launches()
+    for kid in ("K1", "K2", "K8"):
+        need(total[KERNEL_NAMES[kid]] > 0, f"mesh: {kid} was not launched")
+    for kid in ("K3", "K4", "K5", "K6", "K7", "K9", "K9f", "K10"):
+        need(total[KERNEL_NAMES[kid]] == 0,
+             f"mesh: {kid} launched {total[KERNEL_NAMES[kid]]} times")
+    # after the counts: K8 on each case's own operands, CUDA events
+    for rep, (_label, _t, mesh, _b, _kw) in zip(reports, cases):
+        ops = rep.pop("_ops")
+        if len(set(mesh.devices.flat)) == 1:
+            dev_ops = dm.operands_to_device(ops, mesh.devices.flat[0])
+            rep["k8_ms"] = cuda_ms(lambda: pm.sharded_step(dev_ops), reps=3)
+            del dev_ops
+        else:
+            rep["k8_ms"] = None
+        print(f"  {rep['case']}: merge wall {rep['merge_wall_s']:.4f} s, "
+              f"device walls {[round(w, 4) for w in rep['device_walls_s']]}"
+              f" s, dispatch {rep['dispatch_s']:.4f} s, overlap "
+              f"{rep['overlap_factor']:.2f}, K8 at {rep['step']} "
+              + ("not measured" if rep["k8_ms"] is None
+                 else f"{rep['k8_ms']:.4f} ms")
+              + f", K8 launches {rep['launches'].get('K8', 0)}", flush=True)
+    return {"sizes": sizes, "legs": legs, "reports": reports}
+
+
 # -------------------------------------------------------------- report --
 
 SOURCES = {
@@ -1457,6 +1808,8 @@ SOURCES = {
            "cassandra_tpu/ops/merge.py:607"),
     "K7": ("cassandra_tpu_torch/csrc/planes.cu",
            "cassandra_tpu/ops/merge.py:475"),
+    "K8": ("cassandra_tpu_torch/csrc/mesh.cu",
+           "cassandra_tpu/parallel/mesh.py:147"),
     "K9": ("cassandra_tpu_torch/csrc/scanmask.cu",
            "cassandra_tpu/ops/device_scan.py:339"),
     "K9f": ("cassandra_tpu_torch/csrc/scanmask.cu",
@@ -1476,6 +1829,8 @@ LIBRARY_CALLS = {
     "K7": "torch.sort(stable=True) of an int64 key packed from the "
           "round's dense lexicographic ranks (the sort part only; "
           "packing untimed)",
+    "K8": "torch.sort(key, dim=1, stable=True) of an int64 [S, N] key "
+          "packed from the shards' dense ranks (packing untimed)",
     "K9": "torch.eq(keys, q) (the eq op; every op's kernel time under "
           "ops_ms)",
     "K10": "torch.topk(m @ q, k) (dot, k = 10; every case under cases)",
@@ -1536,6 +1891,7 @@ def main(argv=None) -> int:
     planned["K6"] = planned["K7"] = set(PLANE_PADS)
     planned["K9"] = planned["K9f"] = {SEGMENT}
     planned["K10"] = {ANN_ROWS}
+    planned["K8"] = {(MESH_SHARDS, 1 << 20)}       # the skewed-1M step
     phase_kernels(args.seed, planned, res)
     build_root = os.path.join(REPO, "cassandra_tpu_torch", "build")
     os.makedirs(build_root, exist_ok=True)
@@ -1543,14 +1899,22 @@ def main(argv=None) -> int:
     try:
         e2e = phase_e2e(args.seed, args.cells_per_run, work)
         t0 = time.perf_counter()
-        read = phase_read(args.seed, SCAN_PARTITIONS, ANN_ROWS, work)
+        read = phase_read(args.seed, SCAN_PARTITIONS // READ_PARTITIONS_CUT,
+                          ANN_ROWS, work)
         print(f"read: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        mesh = phase_mesh(args.seed, work, e2e["table"])
+        print(f"mesh: {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for kid, by in read["sizes"].items():
         e2e["sizes"][kid] = by
-    e2e["legs"] += read["legs"]
-    # 6. the kernels at every other size the main paths launched
+    for kid, by in mesh["sizes"].items():
+        for size, c in by.items():
+            e2e["sizes"].setdefault(kid, {})
+            e2e["sizes"][kid][size] = e2e["sizes"][kid].get(size, 0) + c
+    e2e["legs"] += read["legs"] + mesh["legs"]
+    # 7. the kernels at every other size the main paths launched
     seen = {kid: set(e2e["sizes"].get(kid, ())) for kid in KERNEL_NAMES}
     print("shapes: the main path launched " + json.dumps(
         {kid: sorted(v) for kid, v in seen.items()}), flush=True)

@@ -208,3 +208,26 @@ def test_ann_limit_below_one_launches_nothing():
     for k in (0, 65):
         with pytest.raises(ValueError, match="outside 1..64"):
             ann.ann_topk(mc, qc, k, "dot")
+
+
+@pytest.mark.parametrize("S,N", [(1, 1024), (2, 1024), (4, 2048),
+                                 (8, 1024), (4, 4096)])
+def test_mesh_step_matches_plain(S, N):
+    """K8 over [S, N] shards on one card against its plain version:
+    perm, packed and stats exact, with a full and an empty shard, and
+    from S = 3 two full one-cell shards side by side (no pad row
+    between them); one launch, counted under its (S, N)."""
+    from chip_smoke import make_mesh_operands
+    from cassandra_tpu_torch.parallel import mesh as pm
+    dev = _card()
+    ops = dm.operands_to_device(make_mesh_operands(S + N, S, N), dev)
+    before = cuda_lib.launch_sizes()["mesh.sharded_step"].get((S, N), 0)
+    perm, packed, stats = pm.sharded_step(ops)
+    perm_p, packed_p, stats_p = pm.sharded_step_plain(ops)
+    assert torch.equal(perm, perm_p)
+    assert torch.equal(packed, packed_p)
+    assert torch.equal(stats, stats_p)
+    kept = int((packed & 1).sum())
+    assert stats.tolist() == [kept, int((ops["valid"] == 0).sum()) - kept]
+    after = cuda_lib.launch_sizes()["mesh.sharded_step"].get((S, N), 0)
+    assert after == before + 1

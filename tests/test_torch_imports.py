@@ -55,13 +55,42 @@ _PROBE = textwrap.dedent("""
                      "ALLOW FILTERING").rows == [(4, 6)]
     assert s.execute("SELECT c FROM t ORDER BY e ANN OF [1.0, 0.0] "
                      "LIMIT 1").rows == [(7,)]
+    # the admin surfaces: vtables, nodetool, audit
+    from cassandra_tpu_torch.tools import nodetool
+    nodetool.run_command("snapshot", engine=eng, tag="p")
+    assert len(s.execute("SELECT * FROM system_views.snapshots").rows) == 1
+    assert s.execute("SELECT * FROM system_views.thread_pools").rows
     eng.close()
+    from cassandra_tpu_torch.service.audit import AuditLog
+    AuditLog(tempfile.mkdtemp() + "/a.jsonl").log("UseStatement", "USE ks",
+                                                  None, None)
+    # the mesh step on two CPU shards
+    from cassandra_tpu_torch.parallel import make_mesh, sharded_merge_step
+    from cassandra_tpu_torch.parallel.mesh import shard_batch
+    from cassandra_tpu_torch.storage.cellbatch import CellBatchBuilder
+    from cassandra_tpu_torch.schema import make_table
+    tt = make_table("ks", "m", pk=["id"], ck=["c"],
+                    cols={{"id": "int", "c": "int", "v": "blob"}})
+    b = CellBatchBuilder(tt)
+    for i in range(6):
+        b.add_cell(tt.serialize_partition_key([i]),
+                   tt.serialize_clustering([i]), tt.columns["v"].column_id,
+                   b"x", 5)
+    st = sharded_merge_step(make_mesh(2, device="cpu"))(
+        shard_batch(b.seal(), 2)[0])[2]
+    assert st.tolist() == [6, 0]
     for m in ("cassandra_tpu_torch.cql.execution",
               "cassandra_tpu_torch.storage.engine",
               "cassandra_tpu_torch.storage.paging",
               "cassandra_tpu_torch.transport.frame",
               "cassandra_tpu_torch.control.loop",
-              "cassandra_tpu_torch.ops.ann"):
+              "cassandra_tpu_torch.ops.ann",
+              "cassandra_tpu_torch.parallel.mesh",
+              "cassandra_tpu_torch.storage.snapshot",
+              "cassandra_tpu_torch.storage.rewrite",
+              "cassandra_tpu_torch.storage.saved_caches",
+              "cassandra_tpu_torch.service.audit",
+              "cassandra_tpu_torch.tools.nodetool"):
         assert m in sys.modules, m
     bad = sorted(m for m in sys.modules
                  if (m == "cassandra_tpu" or m.startswith("cassandra_tpu."))
@@ -128,17 +157,17 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 
 def test_unported_kernels_raise_instead_of_falling_back():
-    """K8 (the shard_map merge step) has no module in the port yet; the
-    scan kernels (K9) and vector search (K10), ported, launch on the
-    default `cuda` device or raise without a card: none of them runs
-    on the host behind the caller's back."""
+    """Every kernel is ported: the mesh step (K8, parallel.mesh), the
+    scan kernels (K9) and vector search (K10) launch on the default
+    `cuda` device or raise without a card: none of them runs on the
+    host behind the caller's back."""
     import importlib
 
     from cassandra_tpu_torch.index.manager import VectorIndex
     from cassandra_tpu_torch.ops import device_scan
 
-    with pytest.raises(ImportError):
-        importlib.import_module("cassandra_tpu_torch.parallel.mesh")
+    mesh = importlib.import_module("cassandra_tpu_torch.parallel.mesh")
+    assert mesh.make_mesh(3, device="cpu").devices.size == 3
     if torch.cuda.is_available():
         return
     pred = device_scan.CompiledPredicate(
@@ -153,6 +182,13 @@ def test_unported_kernels_raise_instead_of_falling_back():
                                                          (b"b", b"")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         idx.ann(np.ones(2, np.float32), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    cuda_mesh = mesh.Mesh([torch.device("cuda", 0)] * 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.sharded_merge_step(cuda_mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.run_sharded_merge(None, cuda_mesh)
 
 
 def test_plane_program_entry_points_default_to_cuda():
