@@ -11,9 +11,10 @@
 
 namespace ctpu {
 
-// Device-wide prefix scans over int32 (scan.cu), shared by the sort's
-// digit offsets (K1), the reconcile's segment starts (K2) and the
-// kept-first compaction (K3). Three phases: each block scans its tile
+// Device-wide prefix scans over int32 (scan.cu), shared by the radix
+// passes' digit offsets (K6, K7, K10), the round sort's live/pad split
+// (K1, K8), the reconcile's segment starts (K2) and the kept-first
+// compaction (K3). Three phases: each block scans its tile
 // in shared memory and writes its total, the totals are scanned by the
 // same routine (recursively), and the carries are added back. In place
 // (in == out) is allowed.
@@ -28,12 +29,13 @@ void scan_add_exclusive(const int* in, int* out, long n, int* scratch,
 void scan_max_inclusive(const int* in, int* out, long n, int* scratch,
                         cudaStream_t stream);
 
-// Stable LSD radix sort of a permutation (sort.cu), shared by the
-// round sort (K1) and the plane programs (K6, K7). A key is one column
-// read through the permutation: `width` bytes per element (1, 2 or 4)
-// at p + row * stride elements, xor'd with `xmask` before its digits are
-// taken (a descending key flips at its own width: xmask = its max).
-// Each key costs `width` stable passes of 8-bit digits.
+// Stable LSD radix sort of a permutation (sort.cu), the round sort's
+// first design, now serving the plane programs (K6, K7) and K10's
+// winner order. A key is one column read through the permutation: `width`
+// bytes per element (1, 2 or 4) at p + row * stride elements, xor'd
+// with `xmask` before its digits are taken (a descending key flips at
+// its own width: xmask = its max). Each key costs `width` stable passes
+// of 8-bit digits, three launches each.
 struct SortKey {
   const void* p;
   int stride;
@@ -47,13 +49,30 @@ long radix_scratch_bytes(int n);
 // perm_tmp (int32[n]) is work space.
 void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
                      int* perm_tmp, void* scratch, cudaStream_t stream);
-// The same passes over n_seg segments of seg_len rows each, every
-// segment sorted inside its own rows [s * seg_len, (s + 1) * seg_len):
-// perm receives row indices of the whole array (the mesh step, K8).
-long radix_seg_scratch_bytes(int n_seg, int seg_len);
-void radix_sort_perm_seg(const SortKey* keys, int nk, int n_seg,
-                         int seg_len, int* perm, int* perm_tmp,
-                         void* scratch, cudaStream_t stream);
+
+// The round sort (sort.cu) of K1 and K8: the stable lexicographic sort
+// over (valid, lanes[0..K-1], ~ts_h, ~ts_l) of S segments of N rows
+// each (operands in row-major [S * N] order, lanes [S * N, K]), every
+// segment sorted inside its own rows [s N, (s + 1) N). It runs one pass
+// per key byte that varies among a segment's live rows (valid == 0) or
+// among its pad rows, and no pass for a byte that does not.
+struct RoundKeys {
+  const uint32_t* lanes;
+  const uint32_t* valid;
+  const uint32_t* ts_h;
+  const uint32_t* ts_l;
+  int K;
+};
+// Bytes of scratch for S segments of N rows with K lanes: the packed
+// varying bytes of a row can reach all 4 (K + 3) of its key bytes.
+long round_sort_scratch_bytes(int S, int N, int K);
+// perm (int32[S * N]) receives row indices of the whole array. One host
+// sync (the plan's varying bytes and group sizes). info (host
+// int64[2]): the passes run (the largest count of varying bytes of any
+// (segment, group)) and the host ns of the plan's copy and sync.
+cudaError_t round_sort_perm(const RoundKeys& key, int S, int N, int* perm,
+                            void* scratch, cudaStream_t stream,
+                            long long* info);
 
 // The reconcile of K2 (reconcile.cu) over a sort permutation of n rows
 // in segments of seg_len rows: a segment's first row starts a

@@ -13,17 +13,20 @@
 //
 // Bound on this card: bytes. Read once, the operands are (4 K + 36) B
 // per row and perm and packed 5 B written: at S = 4, N = 2^22 and
-// K = 13 about 1.5 GB, 0.46 ms at 3.35 TB/s. This design moves far more,
-// as K1 and K2 do (sort.cu, reconcile.cu): 4 (K + 3) radix passes, each
-// reading its key through the permutation.
+// K = 13 about 1.5 GB, 0.46 ms at 3.35 TB/s. The sort held the first
+// design far above it: all 4 (K + 3) key bytes were radix passes
+// of three launches each, every pass reading its byte through the
+// permutation twice. The sort is now sort.cu's round sort (the note
+// there), which runs one single-kernel pass per key byte that varies
+// among a shard's live rows, and none for its padding rows.
 //
 // Design: one sort and one reconcile over the flat S * N rows, with the
 // shards as segments, so a card runs its shards in the launches one
 // round takes and not S times as many.
-//   - Sort: sort.cu's passes with per-(shard, digit) histograms; tiles
-//     never cross a shard's edge and the table is shard-major, so the
-//     one scan per pass places each shard's rows inside [s N, (s+1) N).
-//     No pass is spent on a shard id.
+//   - Sort: round_sort_perm with the shards as segments. Its ranges are
+//     (shard, live or pad), with the lengths its plan returned, so tiles
+//     never cross a range's edge, and each range's rows land inside
+//     [s N, (s + 1) N). No pass is spent on a shard id.
 //   - Reconcile: reconcile.cu's boundary, max-scan and final passes with
 //     a partition start forced at every s N. A full shard (N live rows)
 //     has no padding row after it, so its first row must not be compared
@@ -91,8 +94,8 @@ __global__ void sum_stats(long long* stats_s, int S, long long* stats) {
   stats[1] = dropped;
 }
 
-long sort_part_bytes(int S, int N) {
-  const long a = radix_seg_scratch_bytes(S, N);
+long sort_part_bytes(int S, int N, int K) {
+  const long a = round_sort_scratch_bytes(S, N, K);
   const long b = reconcile_scratch_bytes(S * N);
   return ((a > b ? a : b) + 15) / 16 * 16;
 }
@@ -102,18 +105,19 @@ long sort_part_bytes(int S, int N) {
 
 using namespace ctpu;
 
-// The global permutation and its work buffer (int32[S * N] each), then
-// the sort's or the reconcile's scratch (one after the other, so they
-// share it).
-extern "C" long ctpu_mesh_scratch_bytes(int S, int N) {
-  return 2L * S * N * (long)sizeof(int) + sort_part_bytes(S, N);
+// The global permutation (int32[S * N]), then the sort's or the
+// reconcile's scratch (one after the other, so they share it).
+extern "C" long ctpu_mesh_scratch_bytes(int S, int N, int K) {
+  return ((long)S * N * (long)sizeof(int) + 15) / 16 * 16
+         + sort_part_bytes(S, N, K);
 }
 
 // Operands are [S, N] (lanes [S, N, K]) in row-major order. perm
 // (int32[S, N]) receives shard-local sort permutations, packed
 // (u8[S, N]) the masks in each shard's sorted order, stats_s
 // (int64[S, 2]) each shard's (kept, dropped) and stats (int64[2]) their
-// sum.
+// sum. info (host int64[2]): the sort's passes run and the host ns of
+// its plan's copy and sync.
 extern "C" int ctpu_mesh_step(const uint32_t* lanes, int K,
                               const uint32_t* valid, const uint32_t* ts_h,
                               const uint32_t* ts_l, const int* ldt,
@@ -124,20 +128,14 @@ extern "C" int ctpu_mesh_step(const uint32_t* lanes, int K,
                               int gc_before, int S, int N, int* perm,
                               uint8_t* packed, long long* stats_s,
                               long long* stats, void* scratch,
-                              void* stream) {
+                              void* stream, long long* info) {
   cudaStream_t s = (cudaStream_t)stream;
   const int n = S * N;
   int* gperm = (int*)scratch;
-  int* gtmp = gperm + n;
-  void* work = gtmp + n;
-  // least significant key first: ~ts_l, ~ts_h, lanes[K-1..0], valid
-  SortKey keys[3 + 64];
-  int nk = 0;
-  keys[nk++] = {ts_l, 1, 4, 0xffffffffu};
-  keys[nk++] = {ts_h, 1, 4, 0xffffffffu};
-  for (int k = K - 1; k >= 0; --k) keys[nk++] = {lanes + k, K, 4, 0u};
-  keys[nk++] = {valid, 1, 4, 0u};
-  radix_sort_perm_seg(keys, nk, S, N, gperm, gtmp, work, s);
+  void* work = (char*)scratch + ((long)n * sizeof(int) + 15) / 16 * 16;
+  const RoundKeys key{lanes, valid, ts_h, ts_l, K};
+  const cudaError_t err = round_sort_perm(key, S, N, gperm, work, s, info);
+  if (err != cudaSuccess) return (int)err;
   RecIn in{lanes, ts_h, ts_l, valid, ldt, expiring, cdel, death,
            purge_h, purge_l};
   reconcile_seg(in, K, gperm, n, N, now, gc_before, packed, work, s);

@@ -14,7 +14,10 @@ kernels: `reset_launches()` before, `launches()` after.
 `launch_sizes()` splits each count by the launch's size (the padded
 round N for K1-K3, K6 and K7, the segment's cells for K4 and K5, the
 keys for K9, the matrix rows for K10, the (shards, N) pair for K8), so
-a check can cover every shape the path launched.
+a check can cover every shape the path launched. The round sort (K1,
+and K8's sort) also reports the passes it ran: `passes()` sums them per
+kernel since the reset, `last_sort()` gives the last call's passes and
+its plan's host sync.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ KERNELS = ("merge.sort_perm", "merge.reconcile", "write.compact_gather",
            "index.ann", "mesh.sharded_step")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCH_SIZES: dict[str, dict[int, int]] = {k: {} for k in KERNELS}
+PASSES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+LAST_SORT: dict[str, dict] = {}
 _count_lock = threading.Lock()
 
 _lock = threading.Lock()
@@ -47,18 +52,38 @@ _lib = None
 BUILD_LOG = ""
 
 
-def count_launch(name: str, size: int) -> None:
+def count_launch(name: str, size, passes: int = 0,
+                 sync_ns: int = 0) -> None:
+    """One launch of kernel `name` at `size`; a round sort adds the
+    passes it ran and its plan's host sync (ns)."""
     with _count_lock:
         LAUNCHES[name] += 1
         sizes = LAUNCH_SIZES[name]
         sizes[size] = sizes.get(size, 0) + 1
+        PASSES[name] += passes
+        if passes or sync_ns:
+            LAST_SORT[name] = {"passes": passes, "sync_ms": sync_ns / 1e6}
 
 
 def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            PASSES[k] = 0
             LAUNCH_SIZES[k].clear()
+        LAST_SORT.clear()
+
+
+def passes() -> dict[str, int]:
+    """{kernel: sort passes run} since the last reset."""
+    with _count_lock:
+        return dict(PASSES)
+
+
+def last_sort(name: str) -> dict:
+    """The last round sort of `name`: {"passes", "sync_ms"}."""
+    with _count_lock:
+        return dict(LAST_SORT.get(name, {"passes": 0, "sync_ms": 0.0}))
 
 
 def launches() -> dict[str, int]:
@@ -156,7 +181,7 @@ _U = ctypes.c_uint32
 _Q = ctypes.c_uint64
 
 _SIGNATURES = {
-    "ctpu_sort_scratch_bytes": (_L, [_I]),
+    "ctpu_sort_scratch_bytes": (_L, [_I, _I]),
     "ctpu_sort_perm": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P]),
     "ctpu_reconcile_scratch_bytes": (_L, [_I]),
     "ctpu_reconcile": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -176,9 +201,9 @@ _SIGNATURES = {
     "ctpu_scan_fold": (_I, [_P, _P, _I, _P, _P, _P]),
     "ctpu_ann_scratch_bytes": (_L, [_I, _I]),
     "ctpu_ann_topk": (_I, [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
-    "ctpu_mesh_scratch_bytes": (_L, [_I, _I]),
+    "ctpu_mesh_scratch_bytes": (_L, [_I, _I, _I]),
     "ctpu_mesh_step": (_I, [_P, _I] + [_P] * 9 + [_I, _I, _I, _I]
-                       + [_P] * 6),
+                       + [_P] * 7),
 }
 
 

@@ -7,13 +7,16 @@ shadowing, TTL expiry and purge as masks over the sorted order. Two
 kernels do the device work:
 
   K1 `device_sort_perm`  the stable lexicographic sort permutation
-                         (csrc/sort.cu: LSD radix passes);
+                         (csrc/sort.cu: a plan of the key bytes that
+                         vary, then one LSD pass per such byte);
   K2 `reconcile_kernel`  boundaries, forward-filled deletion stamps and
                          the packed masks (csrc/reconcile.cu).
 
 Each has its plain PyTorch version beside it (`sort_perm_plain`,
 `reconcile_plain`), which the wrapper runs for tensors on the CPU and
 only then; for CUDA tensors it launches the kernel or raises.
+`sort_plan_plain` and `sort_perm_packed_plain` mirror K1's design for
+the tests and chip_smoke.py.
 
 Operands follow the JAX package's layout: u32 lanes travel as the bit
 patterns of int32 tensors (torch has no unsigned 32-bit compares), and
@@ -158,18 +161,19 @@ def _sort_perm_cuda(operands) -> torch.Tensor:
     N, K = _check_operands(operands)
     lanes = operands["lanes"]
     lib = cuda_lib.lib()
+    info = (ctypes.c_longlong * 2)()
     with torch.cuda.device(lanes.device):
         perm = torch.empty(N, dtype=torch.int32, device=lanes.device)
-        tmp = torch.empty_like(perm)
-        scratch = torch.empty(lib.ctpu_sort_scratch_bytes(N),
+        scratch = torch.empty(lib.ctpu_sort_scratch_bytes(N, K),
                               dtype=torch.uint8, device=lanes.device)
         rc = lib.ctpu_sort_perm(
             lanes.data_ptr(), K, operands["valid"].data_ptr(),
             operands["ts_h"].data_ptr(), operands["ts_l"].data_ptr(), N,
-            perm.data_ptr(), tmp.data_ptr(), scratch.data_ptr(),
-            cuda_lib.stream_of(lanes))
+            perm.data_ptr(), scratch.data_ptr(), cuda_lib.stream_of(lanes),
+            info)
         cuda_lib.check(rc, "ctpu_sort_perm")
-        cuda_lib.count_launch("merge.sort_perm", N)
+        cuda_lib.count_launch("merge.sort_perm", N, passes=info[0],
+                              sync_ns=info[1])
     return perm
 
 
@@ -183,6 +187,86 @@ def device_sort_perm(operands) -> torch.Tensor:
 
 
 device_sort_perm = _kprof.wrap("merge.sort_perm", device_sort_perm)
+
+
+# The kernel's design in plain PyTorch, for the tests and chip_smoke.py
+# (never on the main path): the plan (which key bytes vary in each
+# (segment, group), group = live (valid == 0) or pad) and the sort it
+# gives (split, pack the varying bytes, one stable pass per byte).
+
+def _key_bytes(operands) -> torch.Tensor:
+    """Every row's 4 (K + 3) key bytes, most significant first: valid,
+    the lanes, ~ts_h, ~ts_l, each big-endian. uint8 [..., rows, B]."""
+    words = torch.cat([
+        _wide(operands["valid"])[..., None], _wide(operands["lanes"]),
+        (_U32 - _wide(operands["ts_h"]))[..., None],
+        (_U32 - _wide(operands["ts_l"]))[..., None]], dim=-1)
+    return torch.stack([((words >> sh) & 0xFF).to(torch.uint8)
+                        for sh in (24, 16, 8, 0)], dim=-1).flatten(-2)
+
+
+def _segments(operands) -> tuple[torch.Tensor, torch.Tensor]:
+    """(key bytes [S, N, B], live [S, N]) of [N] or [S, N] operands."""
+    kb = _key_bytes(operands)
+    live = operands["valid"] == 0
+    if live.dim() == 1:
+        kb, live = kb[None], live[None]
+    return kb, live
+
+
+def sort_plan_plain(operands) -> dict:
+    """The round sort's plan over [N] operands (one segment) or [S, N]
+    ones (S segments): "bytes", per segment the varying key bytes
+    (indices into the 4 (K + 3) bytes, most significant first) of its
+    live rows and of its pad rows; "sizes" int64 [S, 2], the rows of
+    each; "passes", the passes the kernel runs (the most bytes of any
+    (segment, group)); "key_bytes", 4 (K + 3)."""
+    kb, live = _segments(operands)
+    out, sizes = [], []
+    for s in range(kb.shape[0]):
+        groups = []
+        for rows in (kb[s][live[s]], kb[s][~live[s]]):
+            vary = (rows != rows[:1]).any(dim=0) if rows.shape[0] else \
+                torch.zeros(rows.shape[1], dtype=torch.bool)
+            groups.append(torch.nonzero(vary).flatten().tolist())
+        out.append(groups)
+        sizes.append([int(live[s].sum()), int((~live[s]).sum())])
+    return {"bytes": out, "sizes": torch.tensor(sizes),
+            "passes": max(len(b) for g in out for b in g),
+            "key_bytes": kb.shape[-1]}
+
+
+def _packed_words(rows: torch.Tensor, vary: list) -> torch.Tensor:
+    """The varying bytes of `rows` ([n, B]) packed most significant
+    first into ceil(D / 4) u32 words (int64 [n, words])."""
+    b = rows[:, vary].to(torch.int64)
+    b = torch.cat([b, b.new_zeros(b.shape[0], -len(vary) % 4)], dim=1)
+    shifts = torch.tensor([24, 16, 8, 0], device=b.device)
+    return (b.view(b.shape[0], b.shape[1] // 4, 4) << shifts).sum(dim=2)
+
+
+def sort_perm_packed_plain(operands) -> torch.Tensor:
+    """The round sort's steps in plain PyTorch: per segment, split the
+    rows into live then pad (stable), pack each group's varying bytes
+    and run one stable pass per packed byte, least significant first.
+    Equals sort_perm_plain; int32 [N], or [S, N] of segment-local rows."""
+    plan = sort_plan_plain(operands)
+    kb, live = _segments(operands)
+    perms = []
+    for s in range(kb.shape[0]):
+        parts = []
+        for g, mask in enumerate((live[s], ~live[s])):
+            idx = torch.nonzero(mask).flatten()
+            vary = plan["bytes"][s][g]
+            words = _packed_words(kb[s][idx], vary)
+            perm = torch.arange(idx.shape[0], device=idx.device)
+            for q in reversed(range(len(vary))):
+                digit = (words[:, q // 4] >> (24 - 8 * (q % 4))) & 0xFF
+                perm = perm[torch.sort(digit[perm], stable=True).indices]
+            parts.append(idx[perm])
+        perms.append(torch.cat(parts))
+    out = torch.stack(perms).to(torch.int32)
+    return out[0] if operands["valid"].dim() == 1 else out
 
 
 # -------------------------------------------------------------- reconcile --

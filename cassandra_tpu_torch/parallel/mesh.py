@@ -38,6 +38,7 @@ time, shard imbalance.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 
@@ -223,12 +224,13 @@ def _sharded_step_cuda(operands):
     dev = lanes.device
     lib = cuda_lib.lib()
     o = operands
+    info = (ctypes.c_longlong * 2)()
     with torch.cuda.device(dev):
         perm = torch.empty((S, N), dtype=torch.int32, device=dev)
         packed = torch.empty((S, N), dtype=torch.uint8, device=dev)
         stats_s = torch.empty((S, 2), dtype=torch.int64, device=dev)
         stats = torch.empty(2, dtype=torch.int64, device=dev)
-        scratch = torch.empty(lib.ctpu_mesh_scratch_bytes(S, N),
+        scratch = torch.empty(lib.ctpu_mesh_scratch_bytes(S, N, K),
                               dtype=torch.uint8, device=dev)
         rc = lib.ctpu_mesh_step(
             lanes.data_ptr(), K, o["valid"].data_ptr(),
@@ -237,9 +239,11 @@ def _sharded_step_cuda(operands):
             o["death"].data_ptr(), o["purge_h"].data_ptr(),
             o["purge_l"].data_ptr(), int(o["now"]), int(o["gc_before"]),
             S, N, perm.data_ptr(), packed.data_ptr(), stats_s.data_ptr(),
-            stats.data_ptr(), scratch.data_ptr(), cuda_lib.stream_of(lanes))
+            stats.data_ptr(), scratch.data_ptr(), cuda_lib.stream_of(lanes),
+            info)
         cuda_lib.check(rc, "ctpu_mesh_step")
-        cuda_lib.count_launch("mesh.sharded_step", (S, N))
+        cuda_lib.count_launch("mesh.sharded_step", (S, N), passes=info[0],
+                              sync_ns=info[1])
     return perm, packed, stats
 
 

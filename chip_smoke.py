@@ -29,7 +29,11 @@ result line:
               similarities and k = 10 and 100 (equal indices, scores
               within ANN_TOL); K8, the mesh step, on [4, 2^20]
               synthetic shards (a full and an empty shard, two full
-              shards of one hot cell side by side).
+              shards of one hot cell side by side). K1 and K8 also
+              print the round sort's passes run (of the 4 (K + 3) key
+              bytes; equal to sort_plan_plain's), its plan's host sync
+              on an idle card, its device ms by step (torch.profiler)
+              and the library call's time with its key built.
   4. e2e      the compaction paths, on input sstables in bench.py's
               `stcs` shape (4 runs, 4,096 partitions, clustering
               1..9,999, 64 B random blob values, ts in [1, 2^40), LZ4
@@ -95,7 +99,9 @@ kernel: route, source, the JAX function it replaces, launches over the
 main paths and per leg, max_abs_err, warm ms, plain ms, bound ms and
 what bounds it, and the time of one PyTorch call that computes the same
 function where there is one, at the size launched most, then the same
-per launched size under "shapes") and the card's name and power limit.
+per launched size under "shapes", where K1 and K8 add passes,
+key_bytes, sync_ms, steps and library_with_key_ms) and the card's name
+and power limit.
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -453,6 +459,45 @@ def packed_sort_key(ops: dict) -> torch.Tensor | None:
     return (r_id << 32) | r_ts
 
 
+SORT_STEPS = ("plan_hist", "plan_bases", "split_pack", "round_pass",
+              "scan_tiles", "add_back", "rec_bounds", "rec_final",
+              "shard_stats", "sum_stats", "Memcpy", "Memset")
+
+
+def sort_breakdown(fn) -> dict | None:
+    """Device ms of one call of fn (a round sort or the mesh step) by
+    kernel, from torch.profiler: {step: [launches, ms]} over SORT_STEPS
+    (K2's kernels are rec_*; the scans serve the sort's split and K2);
+    None when the profiler saw no device time or missed the plan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        step = next((k for k in SORT_STEPS if k in e.key), "other")
+        c = out.setdefault(step, [0, 0.0])
+        c[0] += e.count
+        c[1] += e.self_device_time_total / 1e3
+    return out if "plan_hist" in out else None
+
+
+def _timed_sort(name: str, fn) -> tuple:
+    """One call of fn after the card is idle: (its result, the passes it
+    ran, its plan's host sync ms, which then holds only the plan)."""
+    from cassandra_tpu_torch.ops import cuda_lib
+    torch.cuda.synchronize()
+    out = fn()
+    run = cuda_lib.last_sort(name)
+    return out, run["passes"], run["sync_ms"]
+
+
 def round_cells_for(N: int) -> int:
     """Live cells of the synthetic round checked at padded size N: the
     planned round (ROUND_CELLS in ROUND_PAD) at that size, else a round
@@ -479,22 +524,31 @@ def check_round(seed: int, N: int, res: dict) -> None:
                                 torch.device(DEVICE))
 
     # K1 sort
-    perm = dm.device_sort_perm(ops)
+    perm, passes, sync_ms = _timed_sort(
+        "merge.sort_perm", lambda: dm.device_sort_perm(ops))
     perm_p = dm.sort_perm_plain(ops)
     torch.cuda.synchronize()
     err = max_abs_err(perm, perm_p)
     need(err == 0, f"K1 sort at N={N}: kernel != plain (max abs err {err})")
+    plan = dm.sort_plan_plain(ops)
+    need(passes == plan["passes"], f"K1 at N={N}: {passes} passes run, "
+                                   f"the plan has {plan['passes']}")
+    lib_ms = lib_key_ms = None
     key = packed_sort_key(ops)
-    lib_ms = None
     if key is not None:
         lib_perm = torch.sort(key, stable=True).indices
         need(bool((lib_perm.to(torch.int32) == perm).all()),
              "K1: torch.sort of the packed key disagrees")
         lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
-    _entry(res, "K1", "merge.sort_perm", N, err=err,
-           ms=cuda_ms(lambda: dm.device_sort_perm(ops)),
+        lib_key_ms = cuda_ms(
+            lambda: torch.sort(packed_sort_key(ops), stable=True), reps=3)
+    ms = cuda_ms(lambda: dm.device_sort_perm(ops))
+    _entry(res, "K1", "merge.sort_perm", N, err=err, ms=ms,
            plain_ms=cuda_ms(lambda: dm.sort_perm_plain(ops), reps=3),
-           library_ms=lib_ms, bytes=N * ((K + 3) * 4 + 4))
+           library_ms=lib_ms, library_with_key_ms=lib_key_ms,
+           passes=passes, key_bytes=plan["key_bytes"], sync_ms=sync_ms,
+           steps=sort_breakdown(lambda: dm.device_sort_perm(ops)),
+           bytes=N * ((K + 3) * 4 + 4))
 
     # K2 reconcile
     packed = dm.reconcile_kernel(ops, perm)
@@ -879,7 +933,8 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
     S, N = size
     ops = dm.operands_to_device(make_mesh_operands(seed, S, N),
                                 torch.device(DEVICE))
-    perm, packed, stats = pm.sharded_step(ops)
+    (perm, packed, stats), passes, sync_ms = _timed_sort(
+        "mesh.sharded_step", lambda: pm.sharded_step(ops))
     perm_p, packed_p, stats_p = pm.sharded_step_plain(ops)
     torch.cuda.synchronize()
     err = max(max_abs_err(perm, perm_p), max_abs_err(packed, packed_p),
@@ -891,10 +946,17 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
     need(stats.tolist() == [kept, live - kept],
          f"K8 at {size}: stats {stats.tolist()} != ({kept}, "
          f"{live - kept})")
-    key = packed_sort_key({"lanes": ops["lanes"].reshape(S * N, -1),
-                           **{k: ops[k].reshape(-1)
-                              for k in ("valid", "ts_h", "ts_l")}})
-    lib_ms = None
+    plan = dm.sort_plan_plain(ops)
+    need(passes == plan["passes"], f"K8 at {size}: {passes} passes run, "
+                                   f"the plan has {plan['passes']}")
+
+    def flat_key():
+        return packed_sort_key({
+            "lanes": ops["lanes"].reshape(S * N, -1),
+            **{k: ops[k].reshape(-1) for k in ("valid", "ts_h", "ts_l")}})
+
+    lib_ms = lib_key_ms = None
+    key = flat_key()
     if key is not None:
         key = key.view(S, N)
         lib_perm = torch.sort(key, dim=1, stable=True).indices
@@ -902,6 +964,8 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
              "K8: torch.sort of the packed key disagrees")
         lib_ms = cuda_ms(lambda: torch.sort(key, dim=1, stable=True),
                          reps=3)
+        lib_key_ms = cuda_ms(lambda: torch.sort(
+            flat_key().view(S, N), dim=1, stable=True), reps=3)
     print(f"  mesh step {S} x {N}: shards "
           f"{mesh_shard_kinds(S)}, kept {kept}, dropped {live - kept}",
           flush=True)
@@ -909,7 +973,10 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
            ms=cuda_ms(lambda: pm.sharded_step(ops), reps=3),
            plain_ms=cuda_ms(lambda: pm.sharded_step_plain(ops), reps=1,
                             warm=1),
-           library_ms=lib_ms, bytes=mesh_step_bytes(S, N))
+           library_ms=lib_ms, library_with_key_ms=lib_key_ms,
+           passes=passes, key_bytes=plan["key_bytes"], sync_ms=sync_ms,
+           steps=sort_breakdown(lambda: pm.sharded_step(ops)),
+           bytes=mesh_step_bytes(S, N))
 
 
 ROUND_KERNELS = ("K1", "K2", "K3")
@@ -937,6 +1004,17 @@ def print_checks(res: dict, sizes: dict) -> None:
                   f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
                   f"{bound_ms(r['bytes'], r.get('ops', 0)):.4f} ms "
                   f"({bound_by(r)})", flush=True)
+            if "passes" in r:
+                lk = r["library_with_key_ms"]
+                print(f"  {kid} sort passes run {r['passes']} of "
+                      f"{r['key_bytes']}, plan sync {r['sync_ms']:.4f} ms "
+                      "(an idle card's), library with its key built "
+                      + ("n/a" if lk is None else f"{lk:.4f} ms")
+                      + "; device [launches, ms] by step: "
+                      + ("not measured" if r["steps"] is None else
+                         json.dumps({k: [c, round(t, 4)] for k, (c, t)
+                                     in sorted(r["steps"].items())})),
+                      flush=True)
             if kid == "K5":
                 print(f"  K5 D2H of planes + scans (pinned) "
                       f"{r['d2h_ms']:.4f} ms, host emit_block of META + "
@@ -1197,6 +1275,10 @@ def print_leg(label: str, s: dict) -> None:
     if s.get("launches"):
         print(f"    launches: {s['launches']}; by size: {s['sizes']}",
               flush=True)
+    if s.get("passes"):
+        print("    round sort passes run: " + ", ".join(
+            f"{k} {p} over {s['launches'][k]} launches"
+            for k, p in s["passes"].items()), flush=True)
 
 
 def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
@@ -1261,6 +1343,8 @@ def phase_e2e(seed: int, cells_per_run: int, work: str) -> dict:
             leg["launches"] = launches
             leg["sizes"] = {ids[k]: v for k, v in
                             cuda_lib.launch_sizes().items() if k in ids and v}
+            leg["passes"] = {ids[k]: v for k, v in
+                             cuda_lib.passes().items() if k in ids and v}
         leg.update(name=name, src=src)
         print_leg(label, leg)
         for kid in must:
@@ -1742,6 +1826,7 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
     cuda_lib.reset_launches()
     for label, tbl, mesh, batches, kw in cases:
         before = cuda_lib.launches()
+        passes0 = cuda_lib.passes()
         sizes0 = cuda_lib.launch_sizes()
         t0 = time.perf_counter()
         rep = mesh_case(label, tbl, mesh, batches, work,
@@ -1755,6 +1840,9 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
         launches = {ids[k]: after[k] - before[k] for k in after
                     if k in ids and after[k] > before[k]}
         rep["launches"] = launches
+        rep["passes"] = {ids[k]: v - passes0[k]
+                         for k, v in cuda_lib.passes().items()
+                         if k in ids and v > passes0[k]}
         print("  " + json.dumps({k: v for k, v in rep.items()
                                  if not k.startswith("_")}), flush=True)
         reports.append(rep)
@@ -1778,6 +1866,8 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
         if len(set(mesh.devices.flat)) == 1:
             dev_ops = dm.operands_to_device(ops, mesh.devices.flat[0])
             rep["k8_ms"] = cuda_ms(lambda: pm.sharded_step(dev_ops), reps=3)
+            rep["k8_sync_ms"] = _timed_sort(
+                "mesh.sharded_step", lambda: pm.sharded_step(dev_ops))[2]
             del dev_ops
         else:
             rep["k8_ms"] = None
@@ -1786,8 +1876,10 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
               f" s, dispatch {rep['dispatch_s']:.4f} s, overlap "
               f"{rep['overlap_factor']:.2f}, K8 at {rep['step']} "
               + ("not measured" if rep["k8_ms"] is None
-                 else f"{rep['k8_ms']:.4f} ms")
-              + f", K8 launches {rep['launches'].get('K8', 0)}", flush=True)
+                 else f"{rep['k8_ms']:.4f} ms (plan sync "
+                      f"{rep['k8_sync_ms']:.4f} ms)")
+              + f", K8 launches {rep['launches'].get('K8', 0)}, sort "
+              f"passes {rep['passes']}", flush=True)
     return {"sizes": sizes, "legs": legs, "reports": reports}
 
 
@@ -1821,7 +1913,8 @@ SOURCES = {
 
 LIBRARY_CALLS = {
     "K1": "torch.sort(stable=True) of an int64 key packed from the "
-          "round's dense ranks (packing untimed)",
+          "round's dense ranks (packing untimed; library_with_key_ms "
+          "times the packing too)",
     "K3": "torch.nonzero + index_select (several calls)",
     "K6": "torch.sort(stable=True) of an int64 key packed from the "
           "round's dense lexicographic ranks (the sort part only; "
@@ -1830,7 +1923,8 @@ LIBRARY_CALLS = {
           "round's dense lexicographic ranks (the sort part only; "
           "packing untimed)",
     "K8": "torch.sort(key, dim=1, stable=True) of an int64 [S, N] key "
-          "packed from the shards' dense ranks (packing untimed)",
+          "packed from the shards' dense ranks (packing untimed; "
+          "library_with_key_ms times the packing too)",
     "K9": "torch.eq(keys, q) (the eq op; every op's kernel time under "
           "ops_ms)",
     "K10": "torch.topk(m @ q, k) (dot, k = 10; every case under cases)",
@@ -1850,7 +1944,9 @@ def kernels_line(res: dict, e2e: dict) -> dict:
             s = r["shapes"][size]
             extra = {k: s[k] for k in ("masks", "d2h_ms", "emit_ms",
                                        "ops_ms", "cases", "selected",
-                                       "graph_ms", "library_graph_ms")
+                                       "graph_ms", "library_graph_ms",
+                                       "library_with_key_ms", "passes",
+                                       "key_bytes", "sync_ms", "steps")
                      if k in s}
             shapes.append({
                 "size": size, "launches": seen[size],

@@ -24,6 +24,7 @@ from cassandra_tpu_torch.schema import Schema as TSchema
 from cassandra_tpu_torch.storage.engine import StorageEngine as TEngine
 from cassandra_tpu_torch.tools import nodetool as ttool
 from cassandra_tpu_torch.utils import timeutil as t_timeutil
+from torch_tmp import tmp_path  # noqa: F401
 
 FROZEN = 1_790_000_000.25
 

@@ -26,6 +26,7 @@ from cassandra_tpu_torch.service.profiling import GLOBAL as TPROF
 from cassandra_tpu_torch.storage.sstable import Descriptor as TDesc
 from cassandra_tpu_torch.storage.sstable import SSTableReader as TReader
 from cassandra_tpu_torch.storage.table import ColumnFamilyStore as TStore
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def _port_table(jt):

@@ -25,6 +25,7 @@ from cassandra_tpu_torch.ops import device_scan as tds
 from cassandra_tpu_torch.schema import Schema as TSchema
 from cassandra_tpu_torch.service.metrics import GLOBAL as TMETRICS
 from cassandra_tpu_torch.storage.engine import StorageEngine as TEngine
+from torch_tmp import remove, tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,6 +56,7 @@ def engines(tmp_path_factory):
     yield (je, js), (te, ts)
     je.close()
     te.close()
+    remove(root)
 
 
 def _port_leg(te, ts, device_filter: bool) -> list:

@@ -40,6 +40,7 @@ def test_round_kernels_match_plain(n, N):
     before = cuda_lib.launch_sizes()
     perm = dm.device_sort_perm(ops)
     assert torch.equal(perm, dm.sort_perm_plain(ops))
+    assert cuda_lib.last_sort("merge.sort_perm")["passes"] == 22
     packed = dm.reconcile_kernel(ops, perm)
     assert torch.equal(packed, dm.reconcile_plain(ops, perm))
     counts, perm_out, cols = dw.compact_gather(ops, perm, packed)
@@ -50,6 +51,67 @@ def test_round_kernels_match_plain(n, N):
     after = cuda_lib.launch_sizes()
     for k in ("merge.sort_perm", "merge.reconcile", "write.compact_gather"):
         assert after[k].get(N, 0) == before[k].get(N, 0) + 1, k
+
+
+# (case, live rows, padded rows, lanes) at the edges of the pass's tile
+# (4,096 rows) and of half a tile: one row, an edge less one and plus
+# one, 2^16 + 1, an odd pass count (21) and no pass at all (equal keys,
+# all padding)
+ROUND_SORT_CASES = [
+    ("pad", 1, 1, 13), ("pad", 0, 1, 13), ("pad", 2047, 2047, 13),
+    ("pad", 2049, 2049, 13), ("pad", 2047, 4096, 13),
+    ("pad", 4095, 4095, 13), ("pad", 4097, 8192, 13),
+    ("pad", 65_537, 65_537, 13), ("pad", 32_769, 65_537, 13),
+    ("odd-passes", 2049, 4096, 13), ("equal-keys", 2047, 2049, 13),
+    ("pad", 0, 2049, 13), ("pad-zero-lanes", 2049, 4096, 13),
+    ("pad-valid-varies", 1000, 2049, 13), ("every-byte", 2049, 2049, 13),
+    ("ts-edges", 2047, 4096, 13), ("pad", 3000, 4096, 7),
+    ("pad", 1500, 2048, 64),
+]
+
+
+@pytest.mark.parametrize("case,n,N,K", ROUND_SORT_CASES,
+                         ids=[f"{c[0]}-{c[1]}of{c[2]}-K{c[3]}"
+                              for c in ROUND_SORT_CASES])
+def test_round_sort_matches_plain(case, n, N, K):
+    """K1's kernel against its plain version and the packed mirror of
+    its design, with the passes it reports equal to the plan's."""
+    from sort_cases import build
+    dev = _card()
+    ops = dm.operands_to_device(build(case, n, N, K, seed=n), dev)
+    perm = dm.device_sort_perm(ops)
+    run = cuda_lib.last_sort("merge.sort_perm")
+    plain = dm.sort_perm_plain(ops)
+    assert torch.equal(perm, plain)
+    assert torch.equal(dm.sort_perm_packed_plain(ops), plain)
+    assert run["passes"] == dm.sort_plan_plain(ops)["passes"]
+    if case == "odd-passes":
+        assert run["passes"] == 21
+    if case == "equal-keys" or n == 0:
+        assert run["passes"] == 0
+        assert torch.equal(perm.cpu(), torch.arange(N, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("shards,N", [
+    ([("every-byte", 1000), ("pad-valid-varies", 700), ("equal-keys", 2049),
+      ("pad", 0), ("hot", 2049)], 2049),
+    ([("pad", 65_537), ("odd-passes", 30_000)], 65_537),
+], ids=["S5-edges", "S2-2^16+1"])
+def test_mesh_sort_edges_match_plain(shards, N):
+    """K8 on shards whose (shard, group) ranges run different pass
+    counts, at tile edges; passes equal to the plan's."""
+    from sort_cases import mesh
+    from cassandra_tpu_torch.parallel import mesh as pm
+    dev = _card()
+    ops = dm.operands_to_device(mesh(shards, N, seed=N), dev)
+    perm, packed, stats = pm.sharded_step(ops)
+    run = cuda_lib.last_sort("mesh.sharded_step")
+    perm_p, packed_p, stats_p = pm.sharded_step_plain(ops)
+    assert torch.equal(perm, perm_p)
+    assert torch.equal(packed, packed_p)
+    assert torch.equal(stats, stats_p)
+    assert torch.equal(dm.sort_perm_packed_plain(ops), perm_p)
+    assert run["passes"] == dm.sort_plan_plain(ops)["passes"]
 
 
 @pytest.mark.parametrize("n", [4096, 1027])
@@ -231,3 +293,5 @@ def test_mesh_step_matches_plain(S, N):
     assert stats.tolist() == [kept, int((ops["valid"] == 0).sum()) - kept]
     after = cuda_lib.launch_sizes()["mesh.sharded_step"].get((S, N), 0)
     assert after == before + 1
+    assert cuda_lib.last_sort("mesh.sharded_step")["passes"] == \
+        dm.sort_plan_plain(ops)["passes"]

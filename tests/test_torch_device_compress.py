@@ -30,6 +30,7 @@ from cassandra_tpu_torch.schema import make_table as t_make_table
 from cassandra_tpu_torch.service.metrics import GLOBAL as TMETRICS
 from cassandra_tpu_torch.service.profiling import GLOBAL as TPROF
 from cassandra_tpu_torch.storage.table import ColumnFamilyStore as TStore
+from torch_tmp import tmp_path  # noqa: F401
 
 
 def _t(a: np.ndarray) -> torch.Tensor:

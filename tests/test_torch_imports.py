@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_tmp import tmp_path  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = textwrap.dedent("""

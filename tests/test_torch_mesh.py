@@ -25,6 +25,7 @@ from cassandra_tpu_torch.schema import make_table as t_make_table
 from cassandra_tpu_torch.service.profiling import DeviceProgramRegistry
 from cassandra_tpu_torch.storage import cellbatch as tcb
 from cassandra_tpu_torch.tools import bulk as tbulk
+from torch_tmp import tmp_path  # noqa: F401
 
 S = 8
 NOW = 1_700_000_000
