@@ -12,8 +12,8 @@
 namespace ctpu {
 
 // Device-wide prefix scans over int32 (scan.cu), shared by the radix
-// passes' digit offsets (K6, K7, K10), the round sort's live/pad split
-// (K1, K8), the reconcile's segment starts (K2) and the kept-first
+// passes' digit offsets (K10), the round sort's live/pad split (K1, K6,
+// K7, K8), the reconcile's segment starts (K2, K7) and the kept-first
 // compaction (K3). Three phases: each block scans its tile
 // in shared memory and writes its total, the totals are scanned by the
 // same routine (recursively), and the carries are added back. In place
@@ -29,13 +29,9 @@ void scan_add_exclusive(const int* in, int* out, long n, int* scratch,
 void scan_max_inclusive(const int* in, int* out, long n, int* scratch,
                         cudaStream_t stream);
 
-// Stable LSD radix sort of a permutation (sort.cu), the round sort's
-// first design, now serving the plane programs (K6, K7) and K10's
-// winner order. A key is one column read through the permutation: `width`
-// bytes per element (1, 2 or 4) at p + row * stride elements, xor'd
-// with `xmask` before its digits are taken (a descending key flips at
-// its own width: xmask = its max). Each key costs `width` stable passes
-// of 8-bit digits, three launches each.
+// One key plane: `width` bytes per element (1, 2 or 4) at p + row *
+// stride elements, xor'd with `xmask` before its bytes are taken (a
+// descending key flips at its own width: xmask = its max).
 struct SortKey {
   const void* p;
   int stride;
@@ -43,6 +39,9 @@ struct SortKey {
   uint32_t xmask;
 };
 
+// Stable LSD radix sort of a permutation (sort.cu), the round sort's
+// first design, now serving K10's winner order only. Each key costs
+// `width` stable passes of 8-bit digits, three launches each.
 // Bytes of scratch radix_sort_perm needs for n rows.
 long radix_scratch_bytes(int n);
 // keys[0] is the LEAST significant; perm receives the permutation,
@@ -50,29 +49,54 @@ long radix_scratch_bytes(int n);
 void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
                      int* perm_tmp, void* scratch, cudaStream_t stream);
 
-// The round sort (sort.cu) of K1 and K8: the stable lexicographic sort
-// over (valid, lanes[0..K-1], ~ts_h, ~ts_l) of S segments of N rows
-// each (operands in row-major [S * N] order, lanes [S * N, K]), every
-// segment sorted inside its own rows [s N, (s + 1) N). It runs one pass
-// per key byte that varies among a segment's live rows (valid == 0) or
-// among its pad rows, and no pass for a byte that does not.
-struct RoundKeys {
-  const uint32_t* lanes;
-  const uint32_t* valid;
-  const uint32_t* ts_h;
-  const uint32_t* ts_l;
-  int K;
+// The key of the round sort (sort.cu), shared by K1, the mesh step K8
+// (mesh.cu) and the plane programs K6 and K7 (planes.cu): up to
+// MAX_KEY_PLANES planes, most significant first. Its `bytes` bytes,
+// most significant first, are plane 0's (high to low), then plane 1's,
+// and so on: byte b is plane byte_at[b] >> 5, shifted right by
+// byte_at[b] & 31. A row is live when plane 0's value (after its xmask)
+// is below live_below, else padding: K1's and K8's plane 0 is `valid`
+// (live iff 0: live_below = 1), K6's and K7's the partition rank, whose
+// padding rows hold the all-ones sentinel of its width (live_below =
+// the sentinel). Plane 0 is the most significant key, so every padding
+// row sorts after every live row. Passed to the kernels by value.
+constexpr int MAX_KEY_PLANES = 68;
+constexpr int MAX_KEY_BYTES = 4 * MAX_KEY_PLANES;
+struct RoundKey {
+  SortKey pl[MAX_KEY_PLANES];
+  int np;
+  int bytes;
+  uint32_t live_below;
+  uint16_t byte_at[MAX_KEY_BYTES];
+  uint16_t first_byte[MAX_KEY_PLANES];
 };
-// Bytes of scratch for S segments of N rows with K lanes: the packed
-// varying bytes of a row can reach all 4 (K + 3) of its key bytes.
-long round_sort_scratch_bytes(int S, int N, int K);
-// perm (int32[S * N]) receives row indices of the whole array. One host
-// sync (the plan's varying bytes and group sizes). info (host
-// int64[2]): the passes run (the largest count of varying bytes of any
-// (segment, group)) and the host ns of the plan's copy and sync.
-cudaError_t round_sort_perm(const RoundKeys& key, int S, int N, int* perm,
+// An empty key with the given group threshold; round_key_add appends a
+// plane (the caller keeps to MAX_KEY_PLANES).
+RoundKey round_key(uint32_t live_below);
+void round_key_add(RoundKey& key, const void* p, int stride, int width,
+                   uint32_t xmask);
+// K1's and K8's key over S * N rows: (valid, lanes[0..K-1], ~ts_h,
+// ~ts_l), lanes row-major [S * N, K].
+RoundKey lanes_key(const uint32_t* lanes, int K, const uint32_t* valid,
+                   const uint32_t* ts_h, const uint32_t* ts_l);
+
+// The round sort: the stable lexicographic sort of S segments of N rows
+// each (operands in row-major [S * N] order), every segment sorted
+// inside its own rows [s N, (s + 1) N). It runs one pass per key byte
+// that varies among a segment's live rows or among its pad rows, and no
+// pass for a byte that does not. Bytes of scratch for a key of B bytes
+// (the packed varying bytes of a row can reach all B):
+long round_sort_scratch_bytes(int S, int N, int B);
+// perm (int32[S * N]) receives row indices of the whole array. The
+// whole sort is enqueued on `stream` and nothing waits for the device:
+// the plan, the table of passes and each pass's extent stay on the
+// card, and the host launches `key.bytes` passes (one CUDA graph), of
+// which those past the plan's count exit at once. passes (device
+// int32[1]) receives the passes run: the most varying bytes of any
+// (segment, group).
+cudaError_t round_sort_perm(const RoundKey& key, int S, int N, int* perm,
                             void* scratch, cudaStream_t stream,
-                            long long* info);
+                            int* passes);
 
 // The reconcile of K2 (reconcile.cu) over a sort permutation of n rows
 // in segments of seg_len rows: a segment's first row starts a

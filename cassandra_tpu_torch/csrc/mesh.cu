@@ -18,7 +18,8 @@
 // of three launches each, every pass reading its byte through the
 // permutation twice. The sort is now sort.cu's round sort (the note
 // there), which runs one single-kernel pass per key byte that varies
-// among a shard's live rows, and none for its padding rows.
+// among a shard's live rows, and none for its padding rows, and never
+// waits for the device.
 //
 // Design: one sort and one reconcile over the flat S * N rows, with the
 // shards as segments, so a card runs its shards in the launches one
@@ -95,7 +96,7 @@ __global__ void sum_stats(long long* stats_s, int S, long long* stats) {
 }
 
 long sort_part_bytes(int S, int N, int K) {
-  const long a = round_sort_scratch_bytes(S, N, K);
+  const long a = round_sort_scratch_bytes(S, N, 4 * (K + 3));
   const long b = reconcile_scratch_bytes(S * N);
   return ((a > b ? a : b) + 15) / 16 * 16;
 }
@@ -116,8 +117,8 @@ extern "C" long ctpu_mesh_scratch_bytes(int S, int N, int K) {
 // (int32[S, N]) receives shard-local sort permutations, packed
 // (u8[S, N]) the masks in each shard's sorted order, stats_s
 // (int64[S, 2]) each shard's (kept, dropped) and stats (int64[2]) their
-// sum. info (host int64[2]): the sort's passes run and the host ns of
-// its plan's copy and sync.
+// sum. passes (device int32[1]) receives the sort's passes run. Returns
+// without waiting for the device.
 extern "C" int ctpu_mesh_step(const uint32_t* lanes, int K,
                               const uint32_t* valid, const uint32_t* ts_h,
                               const uint32_t* ts_l, const int* ldt,
@@ -128,13 +129,13 @@ extern "C" int ctpu_mesh_step(const uint32_t* lanes, int K,
                               int gc_before, int S, int N, int* perm,
                               uint8_t* packed, long long* stats_s,
                               long long* stats, void* scratch,
-                              void* stream, long long* info) {
+                              void* stream, int* passes) {
   cudaStream_t s = (cudaStream_t)stream;
   const int n = S * N;
   int* gperm = (int*)scratch;
   void* work = (char*)scratch + ((long)n * sizeof(int) + 15) / 16 * 16;
-  const RoundKeys key{lanes, valid, ts_h, ts_l, K};
-  const cudaError_t err = round_sort_perm(key, S, N, gperm, work, s, info);
+  const RoundKey key = lanes_key(lanes, K, valid, ts_h, ts_l);
+  const cudaError_t err = round_sort_perm(key, S, N, gperm, work, s, passes);
   if (err != cudaSuccess) return (int)err;
   RecIn in{lanes, ts_h, ts_l, valid, ldt, expiring, cdel, death,
            purge_h, purge_l};

@@ -21,12 +21,17 @@
 // Bound on this card: bytes. Read once, a K6 round is its buffer
 // (5-8 B/row on the stcs rounds) plus 1 B/row out, at N = 524,288 about
 // 4-5 MB, 1.3 us at 3.35 TB/s; K7 reads 14-20 B/row and writes 4. The
-// design moves far more: each byte of key is one radix pass that
-// gathers the key through the permutation twice (histogram, scatter)
-// and rewrites the permutation, as in K1 (sort.cu, whose passes these
-// programs share). A plane's width decides its passes, so K6 sorts an
-// stcs round in about 8 passes where K1 takes 64. Skipping digits that
-// are constant in a round is later work.
+// first design sorted with `radix_sort_perm`: every byte of every plane
+// a pass of three launches that gathered its byte through the
+// permutation twice, constant bytes included. Both programs now sort
+// with sort.cu's round sort (the note there), over a RoundKey of their
+// planes, most significant first (K6: rank, lanes, the pre-flipped q
+// planes; K7: rank, lanes, ~ts_hi, ~ts_mid, ~ts_lo, each flipped at its
+// own width), with the rank's all-ones sentinel as the group threshold:
+// one plan read, one single-kernel pass per byte that varies among the
+// live rows, none for the padding rows, and no host sync. The host
+// launches as many passes as the key has bytes (about 8 on an stcs K6
+// round); those past the plan's count exit at once.
 //
 // The tails: K6 is one pass over the sorted rows (a row reads its
 // predecessor through the permutation; the run offsets sit in shared
@@ -208,20 +213,22 @@ long tail_bytes(int n) {
 
 using namespace ctpu;
 
-extern "C" long ctpu_planes_scratch_bytes(int n) {
-  const long a = radix_scratch_bytes(n), b = tail_bytes(n);
+extern "C" long ctpu_planes_scratch_bytes(int n, int key_bytes) {
+  const long a = round_sort_scratch_bytes(1, n, key_bytes);
+  const long b = tail_bytes(n);
   return a > b ? a : b;
 }
 
 // K6. buf holds the planes [rank, lanes, q planes] of `widths` (1, 2 or
 // 4 bytes each; 1 + n_lanes + n_q of them), each N rows, back to back,
 // then the int32 run offsets (k + 1 of them). out (u8[N]) receives the
-// per-row byte; perm, perm_tmp (int32[N]) and scratch
-// (ctpu_planes_scratch_bytes(N)) are work space.
+// per-row byte; perm (int32[N]) and scratch (ctpu_planes_scratch_bytes(N,
+// the widths' sum)) are work space; passes (device int32[1]) receives
+// the sort's passes run. Returns without waiting for the device.
 extern "C" int ctpu_plane_fast(const uint8_t* buf, int N, int n_lanes,
                                int n_q, const int* widths, int k,
-                               uint8_t* out, int* perm, int* perm_tmp,
-                               void* scratch, void* stream) {
+                               uint8_t* out, int* perm, void* scratch,
+                               void* stream, int* passes) {
   cudaStream_t s = (cudaStream_t)stream;
   const int np = 1 + n_lanes + n_q;
   if (np > MAX_PLANES || k > MAX_RUNS) return (int)cudaErrorInvalidValue;
@@ -233,16 +240,15 @@ extern "C" int ctpu_plane_fast(const uint8_t* buf, int N, int n_lanes,
     off += (long)N * widths[j];
   }
   const int* offsets = reinterpret_cast<const int*>(buf + off);
-  // least significant first: q planes (pre-flipped: ascending is ts
-  // descending) last to first, lanes last to first, then the rank
-  SortKey keys[MAX_PLANES];
-  int nk = 0;
-  for (int j = np - 1; j >= 0; --j)
-    keys[nk++] = {pl.p[j], 1, pl.width[j], 0u};
-  radix_sort_perm(keys, nk, N, perm, perm_tmp, scratch, s);
   const uint32_t sentinel = widths[0] == 4   ? 0xffffffffu
                             : widths[0] == 2 ? 0xffffu
                                              : 0xffu;
+  // most significant first: the rank, the lanes, the q planes
+  // (pre-flipped: ascending is ts descending)
+  RoundKey key = round_key(sentinel);
+  for (int j = 0; j < np; ++j) round_key_add(key, pl.p[j], 1, pl.width[j], 0u);
+  const cudaError_t err = round_sort_perm(key, 1, N, perm, scratch, s, passes);
+  if (err != cudaSuccess) return (int)err;
   fast_tail<<<grid_for(N, 256), 256, 0, s>>>(pl, n_lanes, n_q, sentinel,
                                              offsets, k, perm, N, out);
   return (int)cudaGetLastError();
@@ -250,16 +256,18 @@ extern "C" int ctpu_plane_fast(const uint8_t* buf, int N, int n_lanes,
 
 // K7. lanes: n_row + n_col + n_path u32 planes (a host array of device
 // pointers); ts_hi and cdel may be null (hi_const, no complex
-// deletions). out (u32[N]) receives (masks << 24) | perm; perm,
-// perm_tmp (int32[N]) and scratch (ctpu_planes_scratch_bytes(N)) are
-// work space.
+// deletions). out (u32[N]) receives (masks << 24) | perm; perm
+// (int32[N]) and scratch (ctpu_planes_scratch_bytes(N, key bytes: 10 +
+// 4 lanes, + 2 with ts_hi)) are work space; passes (device int32[1])
+// receives the sort's passes run. Returns without waiting for the
+// device.
 extern "C" int ctpu_plane_v2(const uint32_t* rank, const uint32_t* const* lanes,
                              int n_row, int n_col, int n_path,
                              const uint32_t* ts_lo, const uint16_t* ts_mid,
                              const uint16_t* ts_hi, uint32_t hi_const,
                              const uint8_t* cdel, uint32_t col_const, int N,
-                             uint32_t* out, int* perm, int* perm_tmp,
-                             void* scratch, void* stream) {
+                             uint32_t* out, int* perm, void* scratch,
+                             void* stream, int* passes) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nl = n_row + n_col + n_path;
   if (nl > MAX_PLANES) return (int)cudaErrorInvalidValue;
@@ -275,16 +283,16 @@ extern "C" int ctpu_plane_v2(const uint32_t* rank, const uint32_t* const* lanes,
   v.hi_const = hi_const;
   v.cdel = cdel;
   v.col_const = col_const;
-  // least significant first: ~ts_lo, ~ts_mid, [~ts_hi], lanes last to
-  // first, then the rank (padding rows carry rank 0xFFFFFFFF)
-  SortKey keys[MAX_PLANES + 4];
-  int nk = 0;
-  keys[nk++] = {ts_lo, 1, 4, 0xffffffffu};
-  keys[nk++] = {ts_mid, 1, 2, 0xffffu};
-  if (ts_hi != nullptr) keys[nk++] = {ts_hi, 1, 2, 0xffffu};
-  for (int j = nl - 1; j >= 0; --j) keys[nk++] = {lanes[j], 1, 4, 0u};
-  keys[nk++] = {rank, 1, 4, 0u};
-  radix_sort_perm(keys, nk, N, perm, perm_tmp, scratch, s);
+  // most significant first: the rank (padding rows carry 0xFFFFFFFF),
+  // the lanes, then ~ts_hi, ~ts_mid, ~ts_lo
+  RoundKey key = round_key(0xffffffffu);
+  round_key_add(key, rank, 1, 4, 0u);
+  for (int j = 0; j < nl; ++j) round_key_add(key, lanes[j], 1, 4, 0u);
+  if (ts_hi != nullptr) round_key_add(key, ts_hi, 1, 2, 0xffffu);
+  round_key_add(key, ts_mid, 1, 2, 0xffffu);
+  round_key_add(key, ts_lo, 1, 4, 0xffffffffu);
+  const cudaError_t err = round_sort_perm(key, 1, N, perm, scratch, s, passes);
+  if (err != cudaSuccess) return (int)err;
   uint8_t* bnd = (uint8_t*)scratch;
   int* ps = (int*)(bnd + ((long)N + 15) / 16 * 16);
   int* rs = ps + N;

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..service.profiling import GLOBAL as _kprof
-from . import cuda_lib
+from . import costs, cuda_lib
 from .merge import _check
 
 SIMILARITIES = {"cosine": 0, "dot": 1, "euclidean": 2}
@@ -97,4 +97,4 @@ def ann_topk(m: torch.Tensor, q: torch.Tensor, k: int,
     return ann_topk_plain(m, q, k, similarity)
 
 
-ann_topk = _kprof.wrap("index.ann", ann_topk)
+ann_topk = _kprof.wrap("index.ann", ann_topk, cost=costs.of("index.ann"))

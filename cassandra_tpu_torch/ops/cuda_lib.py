@@ -15,9 +15,12 @@ kernels: `reset_launches()` before, `launches()` after.
 round N for K1-K3, K6 and K7, the segment's cells for K4 and K5, the
 keys for K9, the matrix rows for K10, the (shards, N) pair for K8), so
 a check can cover every shape the path launched. The round sort (K1,
-and K8's sort) also reports the passes it ran: `passes()` sums them per
-kernel since the reset, `last_sort()` gives the last call's passes and
-its plan's host sync.
+K8's sort, and K6's and K7's) also reports the passes it ran, which
+only the card knows: the wrapper hands `count_launch` the sort's device
+int32[1], copied to pinned host memory behind the sort, and the count
+is read once that copy has completed, never in the submit: `passes()`
+sums them per kernel since the reset, `last_sort()` gives the last
+call's (both wait for the sorts they report on).
 """
 from __future__ import annotations
 
@@ -44,7 +47,12 @@ KERNELS = ("merge.sort_perm", "merge.reconcile", "write.compact_gather",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 LAUNCH_SIZES: dict[str, dict[int, int]] = {k: {} for k in KERNELS}
 PASSES: dict[str, int] = dict.fromkeys(KERNELS, 0)
-LAST_SORT: dict[str, dict] = {}
+# per kernel, (pinned host int32[1], CUDA event) of the sorts whose
+# passes are not yet folded into PASSES; beyond PENDING_CAP the oldest
+# is waited for, so an unread backlog cannot grow without bound
+PENDING_CAP = 1024
+_PENDING: dict[str, list] = {k: [] for k in KERNELS}
+_LAST_SORT: dict[str, tuple] = {}
 _count_lock = threading.Lock()
 
 _lock = threading.Lock()
@@ -52,17 +60,52 @@ _lib = None
 BUILD_LOG = ""
 
 
-def count_launch(name: str, size, passes: int = 0,
-                 sync_ns: int = 0) -> None:
-    """One launch of kernel `name` at `size`; a round sort adds the
-    passes it ran and its plan's host sync (ns)."""
+def count_launch(name: str, size, passes=None) -> None:
+    """One launch of kernel `name` at `size`. A round sort also passes
+    its device int32[1] of the passes it ran: it is copied to the host
+    behind the sort on the current stream, and read later."""
+    rec = None
+    if passes is not None:
+        import torch
+        host = passes.to("cpu", non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(passes.device))
+        rec = (host, ev)
     with _count_lock:
         LAUNCHES[name] += 1
         sizes = LAUNCH_SIZES[name]
         sizes[size] = sizes.get(size, 0) + 1
-        PASSES[name] += passes
-        if passes or sync_ns:
-            LAST_SORT[name] = {"passes": passes, "sync_ms": sync_ns / 1e6}
+        if rec is not None:
+            _PENDING[name].append(rec)
+            _LAST_SORT[name] = rec
+    if rec is not None:
+        _fold(wait=False)
+
+
+def _fold(wait: bool) -> None:
+    """Add the passes of the pending sorts whose copies have completed
+    (all of them, waiting, when `wait`; else the oldest beyond
+    PENDING_CAP are waited for) into PASSES."""
+    with _count_lock:
+        todo = {}
+        for name, recs in _PENDING.items():
+            n = len(recs) if wait else max(0, len(recs) - PENDING_CAP)
+            while n < len(recs) and recs[n][1].query():
+                n += 1
+            if n:
+                todo[name] = recs[:n]
+                del recs[:n]
+    done = {name: sum(_read(rec) for rec in recs)
+            for name, recs in todo.items()}
+    with _count_lock:
+        for name, p in done.items():
+            PASSES[name] += p
+
+
+def _read(rec) -> int:
+    host, ev = rec
+    ev.synchronize()
+    return int(host[0])
 
 
 def reset_launches() -> None:
@@ -71,19 +114,23 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
             PASSES[k] = 0
             LAUNCH_SIZES[k].clear()
-        LAST_SORT.clear()
+            _PENDING[k].clear()
+        _LAST_SORT.clear()
 
 
 def passes() -> dict[str, int]:
-    """{kernel: sort passes run} since the last reset."""
+    """{kernel: sort passes run} since the last reset (waits for the
+    sorts still running)."""
+    _fold(wait=True)
     with _count_lock:
         return dict(PASSES)
 
 
 def last_sort(name: str) -> dict:
-    """The last round sort of `name`: {"passes", "sync_ms"}."""
+    """The last round sort of `name`: {"passes"} (waits for it)."""
     with _count_lock:
-        return dict(LAST_SORT.get(name, {"passes": 0, "sync_ms": 0.0}))
+        rec = _LAST_SORT.get(name)
+    return {"passes": 0 if rec is None else _read(rec)}
 
 
 def launches() -> dict[str, int]:
@@ -192,7 +239,7 @@ _SIGNATURES = {
     "ctpu_meta_block": (_I, [_P] * 7 + [_I, _I, _P, _P, _P]),
     "ctpu_lzscan_scratch_bytes": (_L, [_L]),
     "ctpu_segment_scan": (_I, [_P, _I, _P, _I, _I] + [_P] * 8),
-    "ctpu_planes_scratch_bytes": (_L, [_I]),
+    "ctpu_planes_scratch_bytes": (_L, [_I, _I]),
     "ctpu_plane_fast": (_I, [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]),
     "ctpu_plane_v2": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _U, _P, _U, _I,
                            _P, _P, _P, _P, _P]),

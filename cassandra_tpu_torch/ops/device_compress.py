@@ -33,7 +33,7 @@ import torch
 
 from .. import device as devmod
 from ..service.profiling import GLOBAL as _kprof
-from . import cuda_lib
+from . import costs, cuda_lib
 from .merge import _check
 
 MINMATCH = 4
@@ -161,7 +161,8 @@ def segment_scan(meta_u8: torch.Tensor, lanes_i32: torch.Tensor):
     return segment_scan_plain(meta_u8, lanes_i32)
 
 
-segment_scan = _kprof.wrap("write.segment_scan", segment_scan)
+segment_scan = _kprof.wrap("write.segment_scan", segment_scan,
+                            cost=costs.of("write.segment_scan"))
 
 
 # ---------------------------------------------------------- emission -----

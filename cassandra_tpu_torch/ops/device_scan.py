@@ -45,7 +45,7 @@ import torch
 from .. import device as devmod
 from ..schema import ColumnKind, TableMetadata
 from ..service.profiling import GLOBAL as _kprof
-from . import cuda_lib
+from . import costs, cuda_lib
 from .merge import _check
 
 _BIAS = 1 << 63
@@ -408,7 +408,7 @@ def scan_mask(keys: torch.Tensor, kop: str,
     return scan_mask_plain(keys, kop, qkeys)
 
 
-scan_mask = _kprof.wrap("scan.mask", scan_mask)
+scan_mask = _kprof.wrap("scan.mask", scan_mask, cost=costs.of("scan.mask"))
 
 
 def scan_fold_plain(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -451,7 +451,7 @@ def scan_fold(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return scan_fold_plain(keys, mask)
 
 
-scan_fold = _kprof.wrap("scan.fold", scan_fold)
+scan_fold = _kprof.wrap("scan.fold", scan_fold, cost=costs.of("scan.fold"))
 
 
 def mask_device(keys: np.ndarray, pred: CompiledPredicate,

@@ -44,7 +44,7 @@ from .. import device as devmod
 from ..service.profiling import GLOBAL as _kprof
 from ..storage.cellbatch import (DEATH_FLAGS, FLAG_COUNTER,
                                  FLAG_RANGE_BOUND, CellBatch)
-from . import cuda_lib
+from . import costs, cuda_lib
 from . import device_compress
 from . import merge as dmerge
 
@@ -151,7 +151,8 @@ def compact_gather(operands, perm, packed):
     return compact_gather_plain(operands, perm, packed)
 
 
-compact_gather = _kprof.wrap("write.compact_gather", compact_gather)
+compact_gather = _kprof.wrap("write.compact_gather", compact_gather,
+                              cost=costs.of("write.compact_gather"))
 
 
 def resident_program(operands):
@@ -232,7 +233,8 @@ def meta_block_kernel(ts_h, ts_l, ldt, ttl, flags8, fl, vr):
     return meta_block_plain(ts_h, ts_l, ldt, ttl, flags8, fl, vr)
 
 
-meta_block_kernel = _kprof.wrap("write.meta_block", meta_block_kernel)
+meta_block_kernel = _kprof.wrap("write.meta_block", meta_block_kernel,
+                                 cost=costs.of("write.meta_block"))
 
 
 def meta_stats(st) -> tuple[int, int, int, int, int]:

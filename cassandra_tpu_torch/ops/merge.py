@@ -45,6 +45,7 @@ or more and rank overflows merge on the host, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,7 +57,7 @@ from ..storage.cellbatch import (DEATH_FLAGS, FLAG_COMPLEX_DEL,
                                  FLAG_COUNTER, FLAG_EXPIRING,
                                  FLAG_RANGE_BOUND, FLAG_TOMBSTONE, CellBatch,
                                  apply_counter_sums, sum_counter_runs)
-from . import cuda_lib
+from . import costs, cuda_lib
 
 _U32 = 0xFFFFFFFF
 OPERAND_COLS = ("lanes", "valid", "ts_h", "ts_l", "death", "cdel", "ldt",
@@ -141,39 +142,29 @@ def _check_operands(operands: dict) -> tuple[int, int]:
 
 # ------------------------------------------------------------------- sort --
 
-def _sort_keys(operands) -> list:
-    """Most-significant first: validity, identity lanes, ~ts (int64)."""
-    lanes = _wide(operands["lanes"])
-    K = lanes.shape[1]
-    keys = [_wide(operands["valid"])]
-    keys += [lanes[:, k] for k in range(K)]
-    keys += [_U32 - _wide(operands["ts_h"]), _U32 - _wide(operands["ts_l"])]
-    return keys
-
-
 def sort_perm_plain(operands) -> torch.Tensor:
     """Plain PyTorch K1: K+3 chained stable sorts, least significant key
     first (the JAX package's LSD composition). int32[N]."""
-    return _stable_perm(_sort_keys(operands)[::-1]).to(torch.int32)
+    key = round_sort_key(operands)
+    return _stable_perm([v for v, _w in key.planes[::-1]]).to(torch.int32)
 
 
 def _sort_perm_cuda(operands) -> torch.Tensor:
     N, K = _check_operands(operands)
     lanes = operands["lanes"]
     lib = cuda_lib.lib()
-    info = (ctypes.c_longlong * 2)()
     with torch.cuda.device(lanes.device):
         perm = torch.empty(N, dtype=torch.int32, device=lanes.device)
+        passes = torch.empty(1, dtype=torch.int32, device=lanes.device)
         scratch = torch.empty(lib.ctpu_sort_scratch_bytes(N, K),
                               dtype=torch.uint8, device=lanes.device)
         rc = lib.ctpu_sort_perm(
             lanes.data_ptr(), K, operands["valid"].data_ptr(),
             operands["ts_h"].data_ptr(), operands["ts_l"].data_ptr(), N,
             perm.data_ptr(), scratch.data_ptr(), cuda_lib.stream_of(lanes),
-            info)
+            passes.data_ptr())
         cuda_lib.check(rc, "ctpu_sort_perm")
-        cuda_lib.count_launch("merge.sort_perm", N, passes=info[0],
-                              sync_ns=info[1])
+        cuda_lib.count_launch("merge.sort_perm", N, passes=passes)
     return perm
 
 
@@ -186,42 +177,88 @@ def device_sort_perm(operands) -> torch.Tensor:
     return sort_perm_plain(operands)
 
 
-device_sort_perm = _kprof.wrap("merge.sort_perm", device_sort_perm)
+device_sort_perm = _kprof.wrap("merge.sort_perm", device_sort_perm,
+                                cost=costs.of("merge.sort_perm"))
 
 
-# The kernel's design in plain PyTorch, for the tests and chip_smoke.py
-# (never on the main path): the plan (which key bytes vary in each
-# (segment, group), group = live (valid == 0) or pad) and the sort it
-# gives (split, pack the varying bytes, one stable pass per byte).
+# The round sort's design in plain PyTorch, for the tests and
+# chip_smoke.py (never on the main path): the plan (which key bytes vary
+# in each (segment, group), group = live or pad) and the sort it gives
+# (split, pack the varying bytes, one stable pass per byte), over K1's
+# and K8's key or the plane programs' (K6, K7).
 
-def _key_bytes(operands) -> torch.Tensor:
-    """Every row's 4 (K + 3) key bytes, most significant first: valid,
-    the lanes, ~ts_h, ~ts_l, each big-endian. uint8 [..., rows, B]."""
-    words = torch.cat([
-        _wide(operands["valid"])[..., None], _wide(operands["lanes"]),
-        (_U32 - _wide(operands["ts_h"]))[..., None],
-        (_U32 - _wide(operands["ts_l"]))[..., None]], dim=-1)
-    return torch.stack([((words >> sh) & 0xFF).to(torch.uint8)
-                        for sh in (24, 16, 8, 0)], dim=-1).flatten(-2)
+class SortKeyPlain(NamedTuple):
+    """The round sort's key as the kernel reads it (csrc/common.cuh
+    RoundKey): planes, most significant first, each (its values after
+    the plane's flip, int64 [..., rows]; its width in bytes), and the
+    group threshold: a row is live when plane 0 is below live_below."""
+    planes: list
+    live_below: int
 
 
-def _segments(operands) -> tuple[torch.Tensor, torch.Tensor]:
-    """(key bytes [S, N, B], live [S, N]) of [N] or [S, N] operands."""
-    kb = _key_bytes(operands)
-    live = operands["valid"] == 0
+def round_sort_key(operands) -> SortKeyPlain:
+    """K1's and K8's key over [N] or [S, N] operands: valid, the lanes,
+    ~ts_h, ~ts_l, 4 bytes each; live iff valid == 0."""
+    lanes = _wide(operands["lanes"])
+    planes = [(_wide(operands["valid"]), 4)]
+    planes += [(lanes[..., k], 4) for k in range(lanes.shape[-1])]
+    planes += [(_U32 - _wide(operands["ts_h"]), 4),
+               (_U32 - _wide(operands["ts_l"]), 4)]
+    return SortKeyPlain(planes, 1)
+
+
+def v2_sort_key(planes: dict, cfg) -> SortKeyPlain:
+    """K7's key over a v2 round: the rank, the lanes, then ~ts_hi (when
+    pushed), ~ts_mid and ~ts_lo at their widths; padding rows carry
+    rank 0xFFFFFFFF."""
+    n_row, n_col, n_path, has_hi, _ = cfg
+    key = [(_w32(planes["rank"]), 4)]
+    key += [(_w32(planes[f"lane{i}"]), 4)
+            for i in range(n_row + n_col + n_path)]
+    if has_hi:
+        key.append((0xFFFF - _w16(planes["ts_hi"]), 2))
+    key += [(0xFFFF - _w16(planes["ts_mid"]), 2),
+            (_U32 - _w32(planes["ts_lo"]), 4)]
+    return SortKeyPlain(key, _U32)
+
+
+def fast_sort_key(buf: torch.Tensor, cfg) -> SortKeyPlain:
+    """K6's key over a v3 buffer: the rank, the lanes and the
+    pre-flipped q planes at their widths; padding rows carry the rank's
+    all-ones sentinel."""
+    planes, _offsets = _fast_planes(buf, cfg)
+    return SortKeyPlain(planes, (1 << (8 * planes[0][1])) - 1)
+
+
+def _as_key(key) -> SortKeyPlain:
+    return key if isinstance(key, SortKeyPlain) else round_sort_key(key)
+
+
+def _key_bytes(key: SortKeyPlain) -> torch.Tensor:
+    """Every row's key bytes, most significant first: each plane's, high
+    to low. uint8 [..., rows, B]."""
+    return torch.stack([((v >> (8 * (w - 1 - t))) & 0xFF).to(torch.uint8)
+                        for v, w in key.planes for t in range(w)], dim=-1)
+
+
+def _segments(key: SortKeyPlain) -> tuple[torch.Tensor, torch.Tensor]:
+    """(key bytes [S, N, B], live [S, N]) of an [N] or [S, N] key."""
+    kb = _key_bytes(key)
+    live = key.planes[0][0] < key.live_below
     if live.dim() == 1:
         kb, live = kb[None], live[None]
     return kb, live
 
 
-def sort_plan_plain(operands) -> dict:
-    """The round sort's plan over [N] operands (one segment) or [S, N]
-    ones (S segments): "bytes", per segment the varying key bytes
-    (indices into the 4 (K + 3) bytes, most significant first) of its
-    live rows and of its pad rows; "sizes" int64 [S, 2], the rows of
-    each; "passes", the passes the kernel runs (the most bytes of any
-    (segment, group)); "key_bytes", 4 (K + 3)."""
-    kb, live = _segments(operands)
+def sort_plan_plain(key) -> dict:
+    """The round sort's plan over a key (`SortKeyPlain`, or K1's [N] or
+    K8's [S, N] operands): "bytes", per segment the varying key bytes
+    (indices into the key's bytes, most significant first) of its live
+    rows and of its pad rows; "sizes" int64 [S, 2], the rows of each;
+    "passes", the passes the kernel runs (the most bytes of any
+    (segment, group)); "key_bytes", the key's bytes, which is the
+    passes the host launches (4 (K + 3) for K1 and K8)."""
+    kb, live = _segments(_as_key(key))
     out, sizes = [], []
     for s in range(kb.shape[0]):
         groups = []
@@ -245,13 +282,16 @@ def _packed_words(rows: torch.Tensor, vary: list) -> torch.Tensor:
     return (b.view(b.shape[0], b.shape[1] // 4, 4) << shifts).sum(dim=2)
 
 
-def sort_perm_packed_plain(operands) -> torch.Tensor:
-    """The round sort's steps in plain PyTorch: per segment, split the
-    rows into live then pad (stable), pack each group's varying bytes
-    and run one stable pass per packed byte, least significant first.
-    Equals sort_perm_plain; int32 [N], or [S, N] of segment-local rows."""
-    plan = sort_plan_plain(operands)
-    kb, live = _segments(operands)
+def sort_perm_packed_plain(key) -> torch.Tensor:
+    """The round sort's steps in plain PyTorch over a key (as
+    `sort_plan_plain` takes it): per segment, split the rows into live
+    then pad (stable), pack each group's varying bytes and run one
+    stable pass per packed byte, least significant first. Equals the
+    chained stable sorts over the key's planes (sort_perm_plain for K1);
+    int32 [N], or [S, N] of segment-local rows."""
+    key = _as_key(key)
+    plan = sort_plan_plain(key)
+    kb, live = _segments(key)
     perms = []
     for s in range(kb.shape[0]):
         parts = []
@@ -266,7 +306,7 @@ def sort_perm_packed_plain(operands) -> torch.Tensor:
             parts.append(idx[perm])
         perms.append(torch.cat(parts))
     out = torch.stack(perms).to(torch.int32)
-    return out[0] if operands["valid"].dim() == 1 else out
+    return out[0] if key.planes[0][0].dim() == 1 else out
 
 
 # -------------------------------------------------------------- reconcile --
@@ -392,7 +432,8 @@ def reconcile_kernel(operands, perm) -> torch.Tensor:
     return reconcile_plain(operands, perm)
 
 
-reconcile_kernel = _kprof.wrap("merge.reconcile", reconcile_kernel)
+reconcile_kernel = _kprof.wrap("merge.reconcile", reconcile_kernel,
+                                cost=costs.of("merge.reconcile"))
 
 
 def merge_reconcile_kernel(operands):
@@ -553,20 +594,23 @@ def plane_program_plain(planes: dict, cfg) -> torch.Tensor:
     """Plain PyTorch K7 (the JAX package's `_plane_program`): the LSD
     sort over the v2 planes and the reconcile, as (masks << 24) | perm
     in int32 (bit0 keep, bit1 ambiguous, bit3 shadowed)."""
+    key = v2_sort_key(planes, cfg)
+    # chained stable sorts, least significant plane first
+    perm = _stable_perm([v for v, _w in key.planes[::-1]])
+    return plane_reconcile_plain(planes, cfg, perm)
+
+
+def plane_reconcile_plain(planes: dict, cfg, perm) -> torch.Tensor:
+    """K7's tail (the JAX package's `_plane_reconcile`) over a sort
+    permutation of the v2 planes: (masks << 24) | perm in int32."""
     n_row, n_col, n_path, has_hi, has_cdel = cfg
     n_lanes = n_row + n_col + n_path
     rank = _w32(planes["rank"])
     N = rank.shape[0]
     dev = rank.device
+    perm = perm.to(torch.int64)
     lanes = [_w32(planes[f"lane{i}"]) for i in range(n_lanes)]
     ts_lo, ts_mid = _w32(planes["ts_lo"]), _w16(planes["ts_mid"])
-    # least significant first: ~ts_lo, ~ts_mid, [~ts_hi], lanes, rank
-    keys = [_U32 - ts_lo, 0xFFFF - ts_mid]
-    if has_hi:
-        keys.append(0xFFFF - _w16(planes["ts_hi"]))
-    keys += lanes[::-1] + [rank]
-    perm = _stable_perm(keys)
-
     rank_s = rank[perm]
     valid = rank_s != _U32
     part_new = _diff(rank_s)
@@ -633,6 +677,12 @@ _V2_DTYPES = {"rank": torch.int32, "ts_lo": torch.int32,
               "cdel": torch.uint8}
 
 
+def _v2_key_bytes(cfg) -> int:
+    """Bytes of K7's sort key: rank, 4 per lane, [ts_hi], ts_mid, ts_lo."""
+    n_row, n_col, n_path, has_hi, _ = cfg
+    return 4 + 4 * (n_row + n_col + n_path) + (2 if has_hi else 0) + 2 + 4
+
+
 def _plane_v2_cuda(planes: dict, cfg) -> torch.Tensor:
     n_row, n_col, n_path, has_hi, has_cdel = cfg
     n_lanes = n_row + n_col + n_path
@@ -654,9 +704,10 @@ def _plane_v2_cuda(planes: dict, cfg) -> torch.Tensor:
     with torch.cuda.device(dev):
         out = torch.empty(N, dtype=torch.int32, device=dev)
         perm = torch.empty(N, dtype=torch.int32, device=dev)
-        perm_tmp = torch.empty_like(perm)
-        scratch = torch.empty(lib.ctpu_planes_scratch_bytes(N),
-                              dtype=torch.uint8, device=dev)
+        passes = torch.empty(1, dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            lib.ctpu_planes_scratch_bytes(N, _v2_key_bytes(cfg)),
+            dtype=torch.uint8, device=dev)
         ptrs = (ctypes.c_void_p * max(n_lanes, 1))(
             *[t.data_ptr() for t in lanes])
         rc = lib.ctpu_plane_v2(
@@ -666,10 +717,9 @@ def _plane_v2_cuda(planes: dict, cfg) -> torch.Tensor:
             int(planes["hi_const"]),
             planes["cdel"].data_ptr() if has_cdel else None,
             int(planes["col_const"]), N, out.data_ptr(), perm.data_ptr(),
-            perm_tmp.data_ptr(), scratch.data_ptr(),
-            cuda_lib.stream_of(rank))
+            scratch.data_ptr(), cuda_lib.stream_of(rank), passes.data_ptr())
         cuda_lib.check(rc, "ctpu_plane_v2")
-        cuda_lib.count_launch("merge.plane_v2", N)
+        cuda_lib.count_launch("merge.plane_v2", N, passes=passes)
     return out
 
 
@@ -682,7 +732,8 @@ def plane_program(planes: dict, cfg) -> torch.Tensor:
     return plane_program_plain(planes, cfg)
 
 
-plane_program = _kprof.wrap("merge.plane_v2", plane_program)
+plane_program = _kprof.wrap("merge.plane_v2", plane_program,
+                             cost=costs.of("merge.plane_v2"))
 
 
 # ------------------------------------- truncated-key fast path (v3) ---------
@@ -809,22 +860,41 @@ def _fast_layout(buf: torch.Tensor, cfg):
     return N, spans, off
 
 
+def _fast_planes(buf: torch.Tensor, cfg):
+    """([(plane values int64[N], width)] in the buffer's order: rank,
+    lanes, q planes; the run offsets int64[k + 1]) of a v3 buffer."""
+    k = cfg[3]
+    N, spans, off = _fast_layout(buf, cfg)
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    planes = [(buf[o:o + N * w].view(view[w]).to(torch.int64)
+               & ((1 << (8 * w)) - 1), w) for o, w in spans]
+    offsets = buf[off:off + 4 * (k + 1)].view(torch.int32).to(torch.int64)
+    return planes, offsets
+
+
 def plane_program_fast_plain(buf: torch.Tensor, cfg) -> torch.Tensor:
     """Plain PyTorch K6 (the JAX package's `_plane_program_fast`): the
     LSD sort over the v3 planes sliced from `buf`, then one u8 per
     sorted row: bits 0-3 source run, bit 4 keep, bit 5 ambiguous."""
-    rank_dt, lane_dts, q_dts, k = cfg
-    N, spans, off = _fast_layout(buf, cfg)
-    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
-    planes = [buf[o:o + N * w].view(view[w]).to(torch.int64)
-              & ((1 << (8 * w)) - 1) for o, w in spans]
-    offsets = buf[off:off + 4 * (k + 1)].view(torch.int32).to(torch.int64)
-    rank, lanes = planes[0], planes[1:1 + len(lane_dts)]
-    qs = planes[1 + len(lane_dts):]
-    perm = _stable_perm(qs[::-1] + lanes[::-1] + [rank])
+    planes, _offsets = _fast_planes(buf, cfg)
+    # chained stable sorts, least significant plane first
+    perm = _stable_perm([v for v, _w in planes[::-1]])
+    return plane_fast_tail_plain(buf, cfg, perm)
+
+
+def plane_fast_tail_plain(buf: torch.Tensor, cfg, perm) -> torch.Tensor:
+    """K6's tail over a sort permutation of the v3 planes: the u8 per
+    sorted row (bits 0-3 source run, bit 4 keep, bit 5 ambiguous)."""
+    lane_dts = cfg[1]
+    planes, offsets = _fast_planes(buf, cfg)
+    perm = perm.to(torch.int64)
+    (rank, w0), lanes = planes[0], [v for v, _w in
+                                    planes[1:1 + len(lane_dts)]]
+    qs = [v for v, _w in planes[1 + len(lane_dts):]]
+    N = rank.shape[0]
 
     rank_s = rank[perm]
-    valid = rank_s != (1 << (8 * spans[0][1])) - 1
+    valid = rank_s != (1 << (8 * w0)) - 1
     cell_new = _diff(rank_s)
     for lane in lanes:
         cell_new |= _diff(lane[perm])
@@ -857,15 +927,16 @@ def _plane_fast_cuda(buf: torch.Tensor, cfg) -> torch.Tensor:
     with torch.cuda.device(dev):
         out = torch.empty(N, dtype=torch.uint8, device=dev)
         perm = torch.empty(N, dtype=torch.int32, device=dev)
-        perm_tmp = torch.empty_like(perm)
-        scratch = torch.empty(lib.ctpu_planes_scratch_bytes(N),
-                              dtype=torch.uint8, device=dev)
+        passes = torch.empty(1, dtype=torch.int32, device=dev)
+        scratch = torch.empty(
+            lib.ctpu_planes_scratch_bytes(N, sum(w for _o, w in spans)),
+            dtype=torch.uint8, device=dev)
         rc = lib.ctpu_plane_fast(
             buf.data_ptr(), N, len(lane_dts), len(q_dts), widths, k,
-            out.data_ptr(), perm.data_ptr(), perm_tmp.data_ptr(),
-            scratch.data_ptr(), cuda_lib.stream_of(buf))
+            out.data_ptr(), perm.data_ptr(), scratch.data_ptr(),
+            cuda_lib.stream_of(buf), passes.data_ptr())
         cuda_lib.check(rc, "ctpu_plane_fast")
-        cuda_lib.count_launch("merge.plane_fast", N)
+        cuda_lib.count_launch("merge.plane_fast", N, passes=passes)
     return out
 
 
@@ -877,7 +948,8 @@ def plane_program_fast(buf: torch.Tensor, cfg) -> torch.Tensor:
     return plane_program_fast_plain(buf, cfg)
 
 
-plane_program_fast = _kprof.wrap("merge.plane_fast", plane_program_fast)
+plane_program_fast = _kprof.wrap("merge.plane_fast", plane_program_fast,
+                                  cost=costs.of("merge.plane_fast"))
 
 
 def planes_to_device(planes_or_buf, device):

@@ -38,7 +38,6 @@ time, shard imbalance.
 """
 from __future__ import annotations
 
-import ctypes
 import threading
 import time
 
@@ -46,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import device as devmod
-from ..ops import cuda_lib
+from ..ops import costs, cuda_lib
 from ..ops.merge import (_check, merge_reconcile_kernel,
                          operands_to_device, reconcile_plain,
                          sort_perm_plain)
@@ -224,12 +223,12 @@ def _sharded_step_cuda(operands):
     dev = lanes.device
     lib = cuda_lib.lib()
     o = operands
-    info = (ctypes.c_longlong * 2)()
     with torch.cuda.device(dev):
         perm = torch.empty((S, N), dtype=torch.int32, device=dev)
         packed = torch.empty((S, N), dtype=torch.uint8, device=dev)
         stats_s = torch.empty((S, 2), dtype=torch.int64, device=dev)
         stats = torch.empty(2, dtype=torch.int64, device=dev)
+        passes = torch.empty(1, dtype=torch.int32, device=dev)
         scratch = torch.empty(lib.ctpu_mesh_scratch_bytes(S, N, K),
                               dtype=torch.uint8, device=dev)
         rc = lib.ctpu_mesh_step(
@@ -240,10 +239,9 @@ def _sharded_step_cuda(operands):
             o["purge_l"].data_ptr(), int(o["now"]), int(o["gc_before"]),
             S, N, perm.data_ptr(), packed.data_ptr(), stats_s.data_ptr(),
             stats.data_ptr(), scratch.data_ptr(), cuda_lib.stream_of(lanes),
-            info)
+            passes.data_ptr())
         cuda_lib.check(rc, "ctpu_mesh_step")
-        cuda_lib.count_launch("mesh.sharded_step", (S, N), passes=info[0],
-                              sync_ns=info[1])
+        cuda_lib.count_launch("mesh.sharded_step", (S, N), passes=passes)
     return perm, packed, stats
 
 
@@ -259,7 +257,8 @@ def sharded_step(operands):
     return sharded_step_plain(operands)
 
 
-sharded_step = _kprof.wrap("mesh.sharded_step", sharded_step)
+sharded_step = _kprof.wrap("mesh.sharded_step", sharded_step,
+                            cost=costs.of("mesh.sharded_step"))
 
 _step_cache: dict = {}
 

@@ -13,9 +13,12 @@ The surface is the JAX package's:
       diagnostic event once and counts the rest in `profile.retraces`.
   record_execute(kernel, s)
       host seconds spent waiting for a result.
-  wrap(name, fn)
+  wrap(name, fn, cost=None)
       instruments one entry point: host dispatch time with the shape
-      key of its arguments, and, when an argument is a CUDA tensor, the
+      key of its arguments; at each new shape, when `cost` is given,
+      the kernel's least work for those arguments (`cost(*args,
+      **kwargs)` -> (bytes, operations), ops/costs.py), reported as
+      cost_bytes and cost_flops; and, when an argument is a CUDA tensor, the
       device time between two CUDA events recorded on the current
       stream around the call. The events are read when they have
       completed (at the next call or at snapshot()), so the wrapper
@@ -24,7 +27,8 @@ The surface is the JAX package's:
       folds a CompactionTask.profile into the process aggregate.
 
 There is no tracer check (PyTorch runs eagerly, every call is a real
-launch) and no XLA cost analysis.
+launch) and no XLA cost analysis: the costs are the kernels' byte and
+operation counts from their shapes.
 
 Per-program shape keys are tracked in a bounded LRU (SHAPE_CAP).
 """
@@ -101,7 +105,7 @@ class DeviceProgramRegistry:
                 "dispatch_s": 0.0, "execute_s": 0.0, "device_s": 0.0,
                 "device_calls": 0, "shapes": OrderedDict(),
                 "shape_evictions": 0, "retraces": 0,
-                "sentinel_fired": False}
+                "sentinel_fired": False, "cost": None}
         return k
 
     def record_dispatch(self, kernel: str, shape_key,
@@ -171,9 +175,16 @@ class DeviceProgramRegistry:
 
     # ------------------------------------------------- auto-instrument --
 
-    def wrap(self, name: str, fn):
+    def wrap(self, name: str, fn, cost=None):
         """Instrument one kernel entry point (see module docstring)."""
         registry = self
+
+        def dispatched(key, seconds, args, kwargs):
+            if registry.record_dispatch(name, key, seconds) \
+                    and cost is not None:
+                c = cost(*args, **kwargs)
+                with registry._lock:
+                    registry._kernel_locked(name)["cost"] = c
 
         def wrapped(*args, **kwargs):
             key = _shape_of(args) if not kwargs \
@@ -183,7 +194,7 @@ class DeviceProgramRegistry:
             if dev is None:
                 t0 = CLOCK()
                 out = fn(*args, **kwargs)
-                registry.record_dispatch(name, key, CLOCK() - t0)
+                dispatched(key, CLOCK() - t0, args, kwargs)
                 return out
             import torch
             start = torch.cuda.Event(enable_timing=True)
@@ -194,7 +205,7 @@ class DeviceProgramRegistry:
             out = fn(*args, **kwargs)
             t1 = CLOCK()
             end.record(stream)
-            registry.record_dispatch(name, key, t1 - t0)
+            dispatched(key, t1 - t0, args, kwargs)
             registry._note_events(name, start, end)
             return out
 
@@ -214,8 +225,10 @@ class DeviceProgramRegistry:
     def snapshot(self) -> dict:
         """{"kernels": {name: {calls, compiles, shapes, shape_count,
         shape_evictions, retraces, compile_s, dispatch_s, execute_s,
-        device_s, device_calls}}, "phases": {name: seconds}}.
-        device_s sums the completed CUDA-event intervals."""
+        device_s, device_calls, cost_bytes, cost_flops}}, "phases":
+        {name: seconds}}. device_s sums the completed CUDA-event
+        intervals; the costs are the most recent new shape's (None for
+        a program wrapped without a cost)."""
         self._drain()
         with self._lock:
             kernels = {}
@@ -230,7 +243,11 @@ class DeviceProgramRegistry:
                     "dispatch_s": round(k["dispatch_s"], 6),
                     "execute_s": round(k["execute_s"], 6),
                     "device_s": round(k["device_s"], 6),
-                    "device_calls": k["device_calls"]}
+                    "device_calls": k["device_calls"],
+                    "cost_bytes": None if k["cost"] is None
+                    else float(k["cost"][0]),
+                    "cost_flops": None if k["cost"] is None
+                    else float(k["cost"][1])}
             phases = {p: round(s, 6) for p, s in self._phases.items()}
         return {"kernels": kernels, "phases": phases}
 

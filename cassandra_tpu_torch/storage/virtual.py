@@ -394,8 +394,8 @@ def build_engine_virtuals(engine) -> VirtualSchema:
     # the full per-program accounting the generalized registry keeps —
     # compile vs warm dispatch vs execute, live tracked shapes +
     # evictions (the bounded-LRU churn signals) and past-budget
-    # retraces; the port has no cost analysis, so the cost columns are
-    # null
+    # retraces, and the kernel's least work at its most recent new
+    # shape (ops/costs.py: bytes moved once, operations where counted)
     t_dprog = make_table(
         "system_views", "device_programs", pk=["name"],
         cols={"name": "text", "calls": "bigint", "compiles": "bigint",
@@ -415,7 +415,8 @@ def build_engine_virtuals(engine) -> VirtualSchema:
                    "compile_seconds": k["compile_s"],
                    "dispatch_seconds": k["dispatch_s"],
                    "execute_seconds": k["execute_s"],
-                   "cost_flops": None, "cost_bytes": None}
+                   "cost_flops": k["cost_flops"],
+                   "cost_bytes": k["cost_bytes"]}
     vs.register(VirtualTable(t_dprog, dprog_rows))
 
     # --- profiles (observability layer 6, the wall-clock half): the

@@ -29,11 +29,11 @@ result line:
               similarities and k = 10 and 100 (equal indices, scores
               within ANN_TOL); K8, the mesh step, on [4, 2^20]
               synthetic shards (a full and an empty shard, two full
-              shards of one hot cell side by side). K1 and K8 also
-              print the round sort's passes run (of the 4 (K + 3) key
-              bytes; equal to sort_plan_plain's), its plan's host sync
-              on an idle card, its device ms by step (torch.profiler)
-              and the library call's time with its key built.
+              shards of one hot cell side by side). K1, K6, K7 and K8
+              also print the round sort's passes run (of their key
+              bytes, the passes launched; equal to sort_plan_plain's)
+              and its device ms by step (torch.profiler); K1 and K8 the
+              library call's time with its key built.
   4. e2e      the compaction paths, on input sstables in bench.py's
               `stcs` shape (4 runs, 4,096 partitions, clustering
               1..9,999, 64 B random blob values, ts in [1, 2^40), LZ4
@@ -99,9 +99,11 @@ kernel: route, source, the JAX function it replaces, launches over the
 main paths and per leg, max_abs_err, warm ms, plain ms, bound ms and
 what bounds it, and the time of one PyTorch call that computes the same
 function where there is one, at the size launched most, then the same
-per launched size under "shapes", where K1 and K8 add passes,
-key_bytes, sync_ms, steps and library_with_key_ms) and the card's name
-and power limit.
+per launched size under "shapes", where K1, K6, K7 and K8 add passes,
+key_bytes and steps, K1 and K8 library_with_key_ms) and the card's name
+and power limit. Bytes and operations come from
+cassandra_tpu_torch/ops/costs.py, as system_views.device_programs
+reports them.
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -414,6 +416,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def work(kind: str, *args) -> dict:
+    """The bytes and operations of kernel work `kind` on args, from
+    cassandra_tpu_torch/ops/costs.py, as an entry's keys."""
+    from cassandra_tpu_torch.ops import costs
+    nbytes, ops = getattr(costs, kind)(*args)
+    return {"bytes": nbytes, "ops": ops}
+
+
 def bound_ms(nbytes: float, ops: float = 0.0) -> float:
     """The least time for the work: bytes moved once at the memory rate
     or operations at the non-tensor rate, whichever is longer."""
@@ -459,16 +469,18 @@ def packed_sort_key(ops: dict) -> torch.Tensor | None:
     return (r_id << 32) | r_ts
 
 
-SORT_STEPS = ("plan_hist", "plan_bases", "split_pack", "round_pass",
-              "scan_tiles", "add_back", "rec_bounds", "rec_final",
-              "shard_stats", "sum_stats", "Memcpy", "Memset")
+SORT_STEPS = ("plan_hist", "plan_bases", "plan_table", "split_pack",
+              "round_pass", "scan_tiles", "add_back", "rec_bounds",
+              "rec_final", "shard_stats", "sum_stats", "fast_tail",
+              "v2_bounds", "v2_final", "Memcpy", "Memset")
 
 
 def sort_breakdown(fn) -> dict | None:
-    """Device ms of one call of fn (a round sort or the mesh step) by
-    kernel, from torch.profiler: {step: [launches, ms]} over SORT_STEPS
-    (K2's kernels are rec_*; the scans serve the sort's split and K2);
-    None when the profiler saw no device time or missed the plan."""
+    """Device ms of one call of fn (a round sort, a plane program or the
+    mesh step) by kernel, from torch.profiler: {step: [launches, ms]}
+    over SORT_STEPS (K2's kernels are rec_*, K6's tail fast_tail, K7's
+    v2_*; the scans serve the sort's split, K2 and K7); None when the
+    profiler saw no device time or missed the plan."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -488,14 +500,11 @@ def sort_breakdown(fn) -> dict | None:
     return out if "plan_hist" in out else None
 
 
-def _timed_sort(name: str, fn) -> tuple:
-    """One call of fn after the card is idle: (its result, the passes it
-    ran, its plan's host sync ms, which then holds only the plan)."""
+def _sorted(name: str, fn) -> tuple:
+    """One call of fn: (its result, the passes its round sort ran)."""
     from cassandra_tpu_torch.ops import cuda_lib
-    torch.cuda.synchronize()
     out = fn()
-    run = cuda_lib.last_sort(name)
-    return out, run["passes"], run["sync_ms"]
+    return out, cuda_lib.last_sort(name)["passes"]
 
 
 def round_cells_for(N: int) -> int:
@@ -524,8 +533,8 @@ def check_round(seed: int, N: int, res: dict) -> None:
                                 torch.device(DEVICE))
 
     # K1 sort
-    perm, passes, sync_ms = _timed_sort(
-        "merge.sort_perm", lambda: dm.device_sort_perm(ops))
+    perm, passes = _sorted("merge.sort_perm",
+                           lambda: dm.device_sort_perm(ops))
     perm_p = dm.sort_perm_plain(ops)
     torch.cuda.synchronize()
     err = max_abs_err(perm, perm_p)
@@ -546,9 +555,9 @@ def check_round(seed: int, N: int, res: dict) -> None:
     _entry(res, "K1", "merge.sort_perm", N, err=err, ms=ms,
            plain_ms=cuda_ms(lambda: dm.sort_perm_plain(ops), reps=3),
            library_ms=lib_ms, library_with_key_ms=lib_key_ms,
-           passes=passes, key_bytes=plan["key_bytes"], sync_ms=sync_ms,
+           passes=passes, key_bytes=plan["key_bytes"],
            steps=sort_breakdown(lambda: dm.device_sort_perm(ops)),
-           bytes=N * ((K + 3) * 4 + 4))
+           **work("sort_perm", N, K))
 
     # K2 reconcile
     packed = dm.reconcile_kernel(ops, perm)
@@ -568,7 +577,7 @@ def check_round(seed: int, N: int, res: dict) -> None:
     _entry(res, "K2", "merge.reconcile", N, err=err, masks=masks,
            ms=cuda_ms(lambda: dm.reconcile_kernel(ops, perm)),
            plain_ms=cuda_ms(lambda: dm.reconcile_plain(ops, perm), reps=3),
-           library_ms=None, bytes=N * (4 * K + 4 * 9 + 4 + 1))
+           library_ms=None, **work("reconcile", N, K))
 
     # K3 kept-first compaction + gather
     counts, perm_out, cols = dw.compact_gather(ops, perm, packed)
@@ -591,7 +600,7 @@ def check_round(seed: int, N: int, res: dict) -> None:
            plain_ms=cuda_ms(
                lambda: dw.compact_gather_plain(ops, perm, packed), reps=3),
            library_ms=cuda_ms(library_k3, reps=3),
-           bytes=N * (4 + 1 + 2 * (4 * K + 6 * 4 + 1) + 4) + 12)
+           **work("compact_gather", N, K))
 
 
 def check_segment(seed: int, seg_n: int, res: dict) -> None:
@@ -623,7 +632,7 @@ def check_segment(seed: int, seg_n: int, res: dict) -> None:
     _entry(res, "K4", "write.meta_block", seg_n, err=err,
            ms=cuda_ms(lambda: dw.meta_block_kernel(*seg)),
            plain_ms=cuda_ms(lambda: dw.meta_block_plain(*seg), reps=3),
-           library_ms=None, bytes=seg_n * 50 + 40)
+           library_ms=None, **work("meta_block", seg_n))
 
 
 def check_scan(seed: int, seg_n: int, res: dict) -> None:
@@ -668,7 +677,6 @@ def check_scan(seed: int, seg_n: int, res: dict) -> None:
     for blk, got in zip((meta_np, planes), blocks):
         need(got == native.compress(blk.tobytes()),
              "K5: emitted LZ4 block != the native encoder's")
-    n_scan = meta_np.size + planes.size
     _entry(res, "K5", "write.segment_scan", seg_n, err=err,
            ms=cuda_ms(lambda: dc.segment_scan(meta, lanes), reps=5),
            plain_ms=cuda_ms(lambda: dc.segment_scan_plain(meta, lanes),
@@ -676,10 +684,8 @@ def check_scan(seed: int, seg_n: int, res: dict) -> None:
            library_ms=None, d2h_ms=host_ms(pulled), emit_ms=emit_ms,
            longest_run=longest,
            sizes_lz4=[len(b) for b in blocks],
-           # read META + lanes, write planes + four int32 arrays; four
-           # operations per (position, distance): compare, min, run, max
-           bytes=meta_np.size + 2 * planes.size + 8 * n_scan,
-           ops=4 * len(dc.DISTANCES) * n_scan)
+           **work("segment_scan", meta_np.size, planes.size,
+                  len(dc.DISTANCES)))
 
 
 def plane_cells_for(N: int) -> int:
@@ -689,21 +695,25 @@ def plane_cells_for(N: int) -> int:
 
 def check_planes(seed: int, N: int, res: dict) -> None:
     """K6 and K7 against their plain versions on synthetic rounds padded
-    to N, exact equality; the K7 round must hold keep, ambiguous and
-    shadowed rows."""
+    to N, exact equality, with the passes their round sorts ran equal
+    to the plan's; the K7 round must hold keep, ambiguous and shadowed
+    rows."""
     from cassandra_tpu_torch.ops import merge as dm
 
     dev = torch.device(DEVICE)
     n = plane_cells_for(N)
-    log_n = int(np.ceil(np.log2(N)))
     buf, cfg = make_fast_round(seed + 3, n, N)
     b = dm.planes_to_device(buf, dev)
-    out = dm.plane_program_fast(b, cfg)
+    out, passes = _sorted("merge.plane_fast",
+                          lambda: dm.plane_program_fast(b, cfg))
     ref = dm.plane_program_fast_plain(b, cfg)
     torch.cuda.synchronize()
     err = max_abs_err(out, ref)
     need(err == 0, f"K6 plane_fast at N={N}: kernel != plain "
                    f"(max abs err {err})")
+    plan = dm.sort_plan_plain(dm.fast_sort_key(b, cfg))
+    need(passes == plan["passes"], f"K6 at N={N}: {passes} passes run, "
+                                   f"the plan has {plan['passes']}")
     bits = out[:n].to(torch.int64)
     masks = {"keep": int(((bits >> 4) & 1).sum()),
              "ambiguous": int(((bits >> 5) & 1).sum())}
@@ -719,16 +729,22 @@ def check_planes(seed: int, N: int, res: dict) -> None:
            plain_ms=cuda_ms(lambda: dm.plane_program_fast_plain(b, cfg),
                             reps=3),
            library_ms=cuda_ms(lambda: torch.sort(key, stable=True)),
-           bytes=buf.size + N, ops=N * log_n * (1 + 2 + 1))
+           passes=passes, key_bytes=plan["key_bytes"],
+           steps=sort_breakdown(lambda: dm.plane_program_fast(b, cfg)),
+           **work("plane_fast", buf.size, N))
 
     planes, cfg2 = make_v2_round(seed + 4, n, N)
     p = dm.planes_to_device(planes, dev)
-    out2 = dm.plane_program(p, cfg2)
+    out2, passes2 = _sorted("merge.plane_v2",
+                            lambda: dm.plane_program(p, cfg2))
     ref2 = dm.plane_program_plain(p, cfg2)
     torch.cuda.synchronize()
     err2 = max_abs_err(out2, ref2)
     need(err2 == 0, f"K7 plane_v2 at N={N}: kernel != plain "
                     f"(max abs err {err2})")
+    plan2 = dm.sort_plan_plain(dm.v2_sort_key(p, cfg2))
+    need(passes2 == plan2["passes"], f"K7 at N={N}: {passes2} passes run, "
+                                     f"the plan has {plan2['passes']}")
     m = out2[:n].to(torch.int64) >> 24
     masks2 = {"keep": int((m & 1).sum()), "ambiguous": int((m >> 1 & 1).sum()),
               "shadowed": int((m >> 3 & 1).sum())}
@@ -748,8 +764,10 @@ def check_planes(seed: int, N: int, res: dict) -> None:
            plain_ms=cuda_ms(lambda: dm.plane_program_plain(p, cfg2),
                             reps=3),
            library_ms=cuda_ms(lambda: torch.sort(key2, stable=True)),
-           bytes=sum(np.asarray(v).nbytes for v in planes.values()) + 4 * N,
-           ops=N * log_n * 5)
+           passes=passes2, key_bytes=plan2["key_bytes"],
+           steps=sort_breakdown(lambda: dm.plane_program(p, cfg2)),
+           **work("plane_v2", sum(np.asarray(v).nbytes
+                                  for v in planes.values()), N))
 
 
 def scan_keys(seed: int, n: int) -> np.ndarray:
@@ -795,7 +813,7 @@ def check_scanmask(seed: int, n: int, res: dict) -> None:
            library_ms=cuda_ms(lambda: torch.eq(kc, q_i64)),
            graph_ms=graph_ms(lambda: raw(kc, "eq", q1)),
            library_graph_ms=graph_ms(lambda: torch.eq(kc, q_i64)),
-           ops_ms=ops_ms, hits=hits, bytes=9 * n)
+           ops_ms=ops_ms, hits=hits, **work("scan_mask", n))
 
 
 def check_scanfold(seed: int, n: int, res: dict) -> None:
@@ -819,20 +837,8 @@ def check_scanfold(seed: int, n: int, res: dict) -> None:
            ms=cuda_ms(lambda: ds.scan_fold(kc, lt)),
            graph_ms=graph_ms(lambda: raw(kc, lt)),
            plain_ms=cuda_ms(lambda: ds.scan_fold_plain(kc, lt), reps=3),
-           library_ms=None, selected=int(lt.sum()), bytes=9 * n + 24)
-
-
-def ann_bytes(n: int, d: int, k: int) -> int:
-    """K10 reads the matrix and the query once, writes k scores and
-    indices."""
-    return 4 * n * d + 4 * d + 8 * k
-
-
-def ann_ops(n: int, d: int, sim: str) -> int:
-    """Floating-point operations: a multiply and an add per element
-    (cosine another two for the norm; euclidean a subtract, multiply
-    and add)."""
-    return {"cosine": 4, "dot": 2, "euclidean": 3}[sim] * n * d
+           library_ms=None, selected=int(lt.sum()),
+           **work("scan_fold", n))
 
 
 def check_ann(seed: int, n: int, res: dict, d: int = ANN_DIM) -> None:
@@ -877,13 +883,12 @@ def check_ann(seed: int, n: int, res: dict, d: int = ANN_DIM) -> None:
                 "plain_ms": cuda_ms(
                     lambda: ann.ann_topk_plain(m, qq, k, sim), reps=2),
                 "library_ms": lib, "max_abs_err": e,
-                "bound_ms": bound_ms(ann_bytes(n, d, k), ann_ops(n, d, sim)),
+                "bound_ms": bound_ms(*work("ann", n, d, k, sim).values()),
                 "kth_gap": gap}
     top = cases[f"dot/k={ANN_KS[0]}"]
     _entry(res, "K10", "index.ann", n, err=err, ms=top["ms"],
            plain_ms=top["plain_ms"], library_ms=top["library_ms"],
-           cases=cases, bytes=ann_bytes(n, d, ANN_KS[0]),
-           ops=ann_ops(n, d, "dot"))
+           cases=cases, **work("ann", n, d, ANN_KS[0], "dot"))
 
 
 def mesh_shard_kinds(S: int) -> list:
@@ -916,12 +921,6 @@ def make_mesh_operands(seed: int, S: int, N: int) -> dict:
     return ops
 
 
-def mesh_step_bytes(S: int, N: int, K: int = LANES) -> int:
-    """K8's bytes moved once: the operands read (lanes, nine u32/i32
-    columns) and perm and packed written, plus the stats."""
-    return S * N * (4 * K + 9 * 4 + 4 + 1) + 16 * (S + 1)
-
-
 def check_mesh(seed: int, size: tuple, res: dict) -> None:
     """K8 against its plain version on a synthetic [S, N] step with a
     full and an empty shard; exact perm, packed and stats; warm times;
@@ -933,7 +932,7 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
     S, N = size
     ops = dm.operands_to_device(make_mesh_operands(seed, S, N),
                                 torch.device(DEVICE))
-    (perm, packed, stats), passes, sync_ms = _timed_sort(
+    (perm, packed, stats), passes = _sorted(
         "mesh.sharded_step", lambda: pm.sharded_step(ops))
     perm_p, packed_p, stats_p = pm.sharded_step_plain(ops)
     torch.cuda.synchronize()
@@ -974,9 +973,9 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
            plain_ms=cuda_ms(lambda: pm.sharded_step_plain(ops), reps=1,
                             warm=1),
            library_ms=lib_ms, library_with_key_ms=lib_key_ms,
-           passes=passes, key_bytes=plan["key_bytes"], sync_ms=sync_ms,
+           passes=passes, key_bytes=plan["key_bytes"],
            steps=sort_breakdown(lambda: pm.sharded_step(ops)),
-           bytes=mesh_step_bytes(S, N))
+           **work("mesh_step", S, N, LANES))
 
 
 ROUND_KERNELS = ("K1", "K2", "K3")
@@ -1005,11 +1004,10 @@ def print_checks(res: dict, sizes: dict) -> None:
                   f"{bound_ms(r['bytes'], r.get('ops', 0)):.4f} ms "
                   f"({bound_by(r)})", flush=True)
             if "passes" in r:
-                lk = r["library_with_key_ms"]
+                lk = r.get("library_with_key_ms")
                 print(f"  {kid} sort passes run {r['passes']} of "
-                      f"{r['key_bytes']}, plan sync {r['sync_ms']:.4f} ms "
-                      "(an idle card's), library with its key built "
-                      + ("n/a" if lk is None else f"{lk:.4f} ms")
+                      f"{r['key_bytes']} launched, library with its key "
+                      "built " + ("n/a" if lk is None else f"{lk:.4f} ms")
                       + "; device [launches, ms] by step: "
                       + ("not measured" if r["steps"] is None else
                          json.dumps({k: [c, round(t, 4)] for k, (c, t)
@@ -1866,8 +1864,6 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
         if len(set(mesh.devices.flat)) == 1:
             dev_ops = dm.operands_to_device(ops, mesh.devices.flat[0])
             rep["k8_ms"] = cuda_ms(lambda: pm.sharded_step(dev_ops), reps=3)
-            rep["k8_sync_ms"] = _timed_sort(
-                "mesh.sharded_step", lambda: pm.sharded_step(dev_ops))[2]
             del dev_ops
         else:
             rep["k8_ms"] = None
@@ -1876,8 +1872,7 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
               f" s, dispatch {rep['dispatch_s']:.4f} s, overlap "
               f"{rep['overlap_factor']:.2f}, K8 at {rep['step']} "
               + ("not measured" if rep["k8_ms"] is None
-                 else f"{rep['k8_ms']:.4f} ms (plan sync "
-                      f"{rep['k8_sync_ms']:.4f} ms)")
+                 else f"{rep['k8_ms']:.4f} ms")
               + f", K8 launches {rep['launches'].get('K8', 0)}, sort "
               f"passes {rep['passes']}", flush=True)
     return {"sizes": sizes, "legs": legs, "reports": reports}
@@ -1946,7 +1941,7 @@ def kernels_line(res: dict, e2e: dict) -> dict:
                                        "ops_ms", "cases", "selected",
                                        "graph_ms", "library_graph_ms",
                                        "library_with_key_ms", "passes",
-                                       "key_bytes", "sync_ms", "steps")
+                                       "key_bytes", "steps")
                      if k in s}
             shapes.append({
                 "size": size, "launches": seen[size],

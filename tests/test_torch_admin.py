@@ -195,3 +195,31 @@ def test_nodetool_unported_module_raises(engines):
     with pytest.raises(ImportError, match="copyutil"):
         tt.run_command("getsstables", engine=teng, keyspace="adm",
                        table="t", key="1")
+
+
+def test_device_programs_cost_columns(tmp_path):
+    """system_views.device_programs reports each launched kernel's least
+    work at its most recent new shape (ops/costs.py): K1 and K6 here,
+    through their wrappers on the CPU, at shapes no other test uses."""
+    from chip_smoke import make_fast_round, make_round
+
+    from cassandra_tpu_torch.ops import costs
+    from cassandra_tpu_torch.ops import merge as tmerge
+    N, K = 1031, 11
+    ops = tmerge.operands_to_device(make_round(3, 1000, N, K), "cpu")
+    tmerge.device_sort_perm(ops)
+    buf, cfg = make_fast_round(3, 2000, 3072, k=5)
+    tmerge.plane_program_fast(tmerge.planes_to_device(buf, "cpu"), cfg)
+    eng = TEngine(str(tmp_path / "port"), TSchema(), device="cpu")
+    try:
+        rows = {name: (nbytes, flops) for name, nbytes, flops in
+                TSession(eng).execute(
+                    "SELECT name, cost_bytes, cost_flops FROM "
+                    "system_views.device_programs").rows}
+    finally:
+        eng.close()
+    want = {"merge.sort_perm": costs.sort_perm(N, K),
+            "merge.plane_fast": costs.plane_fast(buf.size, 3072)}
+    for name, (nbytes, flops) in want.items():
+        assert rows[name] == (nbytes, flops), name
+        assert nbytes > 0

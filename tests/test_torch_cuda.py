@@ -181,16 +181,150 @@ def test_plane_programs_match_plain(n, N):
     before = cuda_lib.launch_sizes()
     out = dm.plane_program_fast(b, cfg)
     assert torch.equal(out, dm.plane_program_fast_plain(b, cfg))
+    assert cuda_lib.last_sort("merge.plane_fast")["passes"] == \
+        dm.sort_plan_plain(dm.fast_sort_key(b, cfg))["passes"]
     planes, cfg2 = make_v2_round(n, n, N, partitions=8)
     p = dm.planes_to_device(planes, dev)
     out2 = dm.plane_program(p, cfg2)
     assert torch.equal(out2, dm.plane_program_plain(p, cfg2))
+    assert cuda_lib.last_sort("merge.plane_v2")["passes"] == \
+        dm.sort_plan_plain(dm.v2_sort_key(p, cfg2))["passes"]
     masks = (out2[:n].to(torch.int64) >> 24)
     for bit in (1, 2, 8):                     # keep, ambiguous, shadowed
         assert bool(((masks & bit) != 0).any()), bit
     after = cuda_lib.launch_sizes()
     for k in ("merge.plane_fast", "merge.plane_v2"):
         assert after[k].get(N, 0) == before[k].get(N, 0) + 1, k
+
+
+# K6 rounds (widths, live rows, padded rows; N % 1024 == 0) and K7
+# rounds (live rows, padded rows, ts_hi, cdel) at the pass tile's edges
+# (4,096 rows), all padding, one live row and all live
+PLANE_FAST_CASES = [("u8", 3000, 4096), ("u16", 4097, 8192),
+                    ("u32", 4095, 4096), ("u16", 0, 2048), ("u8", 1, 1024),
+                    ("u32", 1024, 1024)]
+PLANE_V2_CASES = [(3000, 4096, False, True), (4097, 8192, True, True),
+                  (4095, 4096, True, False), (0, 2048, False, False),
+                  (1, 1024, True, True), (12288, 12288, False, True)]
+
+
+@pytest.mark.parametrize("widths,n,N", PLANE_FAST_CASES,
+                         ids=[f"{c[0]}-{c[1]}of{c[2]}"
+                              for c in PLANE_FAST_CASES])
+def test_plane_fast_sort_matches_plain(widths, n, N):
+    """K6 on planes of width 1, 2 and 4 against its plain version and
+    the packed mirror of its sort, with the passes it reports equal to
+    the plan's."""
+    from plane_cases import FAST_WIDTHS, fast_round
+    dev = _card()
+    buf, cfg = fast_round(n + N, n, N, FAST_WIDTHS[widths])
+    b = dm.planes_to_device(buf, dev)
+    out = dm.plane_program_fast(b, cfg)
+    run = cuda_lib.last_sort("merge.plane_fast")
+    assert torch.equal(out, dm.plane_program_fast_plain(b, cfg))
+    key = dm.fast_sort_key(b, cfg)
+    assert torch.equal(dm.plane_fast_tail_plain(
+        b, cfg, dm.sort_perm_packed_plain(key)), out)
+    assert run["passes"] == dm.sort_plan_plain(key)["passes"]
+    if n <= 1:
+        assert run["passes"] == 0
+
+
+@pytest.mark.parametrize("n,N,has_hi,has_cdel", PLANE_V2_CASES,
+                         ids=[f"{c[0]}of{c[1]}" + ("-hi" if c[2] else "")
+                              + ("-cdel" if c[3] else "")
+                              for c in PLANE_V2_CASES])
+def test_plane_v2_sort_matches_plain(n, N, has_hi, has_cdel):
+    """K7 with and without ts_hi and cdel against its plain version and
+    the packed mirror of its sort, with the passes it reports equal to
+    the plan's."""
+    from plane_cases import v2_round
+    dev = _card()
+    planes, cfg = v2_round(n + N, n, N, has_hi, has_cdel)
+    p = dm.planes_to_device(planes, dev)
+    out = dm.plane_program(p, cfg)
+    run = cuda_lib.last_sort("merge.plane_v2")
+    assert torch.equal(out, dm.plane_program_plain(p, cfg))
+    key = dm.v2_sort_key(p, cfg)
+    perm = dm.sort_perm_packed_plain(key)
+    assert torch.equal(perm, out & 0xFFFFFF)
+    assert run["passes"] == dm.sort_plan_plain(key)["passes"]
+    if n <= 1:
+        assert run["passes"] == 0
+
+
+def _port_batches(seed: int, deletions: bool) -> list:
+    """Four runs of 3,000 cells of the port's CellBatch (no jax): sorted
+    live runs with colliding stamps (a K6 round), or unsorted runs with
+    cell, row and partition deletions (a K7 round)."""
+    import random
+
+    from cassandra_tpu_torch.schema import COL_REGULAR_BASE, make_table
+    from cassandra_tpu_torch.storage import cellbatch as cb
+    t = make_table("ks", "t", pk=["id"], ck=["c"],
+                   cols={"id": "int", "c": "int", "v": "text"})
+    idt = t.columns["id"].cql_type
+    rng = random.Random(seed)
+    out = []
+    for _ in range(4):
+        b = cb.CellBatchBuilder(t)
+        for _ in range(3000):
+            p = idt.serialize(rng.randrange(64))
+            c = t.serialize_clustering([rng.randrange(40)])
+            ts = (1 << 30) + rng.choice([rng.randrange(1 << 24),
+                                         rng.randrange(4)])
+            kind = rng.random() if deletions else 0.0
+            if kind < 0.8:
+                b.add_cell(p, c, COL_REGULAR_BASE,
+                           rng.choice([b"a", b"zz", b"x" * 9]), ts)
+            elif kind < 0.9:
+                b.add_tombstone(p, c, COL_REGULAR_BASE, ts, 10)
+            elif kind < 0.98:
+                b.add_row_deletion(p, c, ts, 10)
+            else:
+                b.add_partition_deletion(p, ts, 10)
+        out.append(b.seal() if deletions else cb.merge_sorted([b.seal()]))
+    return out
+
+
+def _same_batch(a, b) -> None:
+    assert len(a) == len(b)
+    for k in ("lanes", "ts", "ldt", "flags", "payload", "off"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+
+
+def test_submits_return_while_the_stream_is_busy():
+    """submit_merge_resident (K1-K3) and submit_merge on a K6 round and
+    a K7 round enqueue their work behind a kernel that keeps the card
+    busy and return before it ends (the round sort never waits for the
+    device); collect then gives the batch the CPU gives."""
+    dev = _card()
+    live, dels = _port_batches(1, False), _port_batches(2, True)
+    cpu_res = dw.collect_merge_resident(
+        dw.submit_merge_resident(live, device="cpu"))
+    rounds = [(dm.submit_merge, dm.collect_merge, live, "fast"),
+              (dm.submit_merge, dm.collect_merge, dels, "v2"),
+              (dw.submit_merge_resident, dw.collect_merge_resident, live,
+               "resident")]
+    for submit, collect, batches, _mode in rounds:   # build, warm caches
+        collect(submit(batches, device=dev))
+    stream = torch.cuda.current_stream(dev)
+    for submit, collect, batches, mode in rounds:
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(1 << 31)                    # about a second
+        h = submit(batches, device=dev)
+        assert not stream.query(), mode               # still sleeping
+        assert h.mode == mode
+        got = collect(h)
+        if mode == "resident":
+            assert got.n == cpu_res.n
+            for k, col in got.cols.items():
+                assert torch.equal(col[:got.n].cpu(),
+                                   cpu_res.cols[k][:cpu_res.n]), k
+            np.testing.assert_array_equal(got.payload, cpu_res.payload)
+            np.testing.assert_array_equal(got.off, cpu_res.off)
+        else:
+            _same_batch(got, collect(submit(batches, device="cpu")))
 
 
 @pytest.mark.parametrize("n", [1, 4099, 65_536])
