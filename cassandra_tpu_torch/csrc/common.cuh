@@ -11,10 +11,10 @@
 
 namespace ctpu {
 
-// Device-wide prefix scans over int32 (scan.cu), shared by the radix
-// passes' digit offsets (K10), the round sort's live/pad split (K1, K6,
-// K7, K8), the reconcile's segment starts (K2, K7) and the kept-first
-// compaction (K3). Three phases: each block scans its tile
+// Device-wide prefix scans over int32 (scan.cu), shared by K10's
+// select path, the round sort's live/pad split (K1, K6, K7, K8), the
+// reconcile's segment starts (K2, K7) and the kept-first compaction
+// (K3). Three phases: each block scans its tile
 // in shared memory and writes its total, the totals are scanned by the
 // same routine (recursively), and the carries are added back. In place
 // (in == out) is allowed.
@@ -29,28 +29,19 @@ void scan_add_exclusive(const int* in, int* out, long n, int* scratch,
 void scan_max_inclusive(const int* in, int* out, long n, int* scratch,
                         cudaStream_t stream);
 
-// One key plane: `width` bytes per element (1, 2 or 4) at p + row *
-// stride elements, xor'd with `xmask` before its bytes are taken (a
-// descending key flips at its own width: xmask = its max).
-struct SortKey {
+// One plane of a sort key: `width` bytes per element (1, 2 or 4) at
+// p + row * stride elements, xor'd with `xmask` before its bytes are
+// taken (a descending key flips at its own width: xmask = its max).
+struct KeyPlane {
   const void* p;
   int stride;
   int width;
   uint32_t xmask;
 };
 
-// Stable LSD radix sort of a permutation (sort.cu), the round sort's
-// first design, now serving K10's winner order only. Each key costs
-// `width` stable passes of 8-bit digits, three launches each.
-// Bytes of scratch radix_sort_perm needs for n rows.
-long radix_scratch_bytes(int n);
-// keys[0] is the LEAST significant; perm receives the permutation,
-// perm_tmp (int32[n]) is work space.
-void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
-                     int* perm_tmp, void* scratch, cudaStream_t stream);
-
 // The key of the round sort (sort.cu), shared by K1, the mesh step K8
-// (mesh.cu) and the plane programs K6 and K7 (planes.cu): up to
+// (mesh.cu), the plane programs K6 and K7 (planes.cu) and K10's select
+// path (ann.cu): up to
 // MAX_KEY_PLANES planes, most significant first. Its `bytes` bytes,
 // most significant first, are plane 0's (high to low), then plane 1's,
 // and so on: byte b is plane byte_at[b] >> 5, shifted right by
@@ -63,7 +54,7 @@ void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
 constexpr int MAX_KEY_PLANES = 68;
 constexpr int MAX_KEY_BYTES = 4 * MAX_KEY_PLANES;
 struct RoundKey {
-  SortKey pl[MAX_KEY_PLANES];
+  KeyPlane pl[MAX_KEY_PLANES];
   int np;
   int bytes;
   uint32_t live_below;

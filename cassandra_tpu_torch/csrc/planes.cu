@@ -21,7 +21,8 @@
 // Bound on this card: bytes. Read once, a K6 round is its buffer
 // (5-8 B/row on the stcs rounds) plus 1 B/row out, at N = 524,288 about
 // 4-5 MB, 1.3 us at 3.35 TB/s; K7 reads 14-20 B/row and writes 4. The
-// first design sorted with `radix_sort_perm`: every byte of every plane
+// first design sorted with a radix sort of the permutation (since
+// deleted): every byte of every plane
 // a pass of three launches that gathered its byte through the
 // permutation twice, constant bytes included. Both programs now sort
 // with sort.cu's round sort (the note there), over a RoundKey of their

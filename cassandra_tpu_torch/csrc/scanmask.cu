@@ -7,12 +7,20 @@
 // only because jax defaults to 32-bit types; here a key is one native
 // uint64_t (torch holds it as the int64 bit pattern) and compares as one.
 //
-// Bound on this card: bytes, and at the sizes the scan gives it, launch
-// time. The mask reads 8 B per key and writes 1 B (a 65,536-key segment
-// is 0.59 MB, 0.18 us at 3.35 TB/s, far below a launch); the fold reads
-// 9 B per key. Design: the mask is one thread per key, the op a kernel
-// parameter, the single bound passed by value and the IN list read from
-// device memory (through the read-only cache; every thread walks it).
+// Bound on this card: bytes, and at the sizes the scan gives it, the
+// host's cost of issuing a launch. The mask reads 8 B per key and
+// writes 1 B (a 65,536-key segment is 0.59 MB, 0.18 us at 3.35 TB/s, far
+// below a launch); the fold reads 9 B per key. So the scan does not
+// launch per segment: it masks a run of consecutive device-gated
+// segments of one source, up to 2^20 keys, with one launch
+// (ops/device_scan.py `mask_run`: one pinned H2D copy of the keys, one
+// D2H copy of the mask into pinned memory, one wait), and the wrappers
+// keep their issue path lean (no device switch when the keys' device is
+// current, the raw stream handle, no slice for an empty IN list: qlist
+// may be null when m == 0). Design: the mask is one thread per key, the
+// op a kernel parameter, the single bound passed by value and the IN
+// list read from device memory (through the read-only cache; every
+// thread walks it); one byte a key, which the host reads as numpy bools.
 // The fold is a two-pass block reduction: each of at most FOLD_BLOCKS
 // blocks folds a grid-stride slice into (count, min, max) with warp
 // shuffles and writes its partial, then one block folds the partials.
@@ -130,7 +138,8 @@ int fold_blocks(int n) {
 using namespace ctpu;
 
 // out (u8[n]) receives 1 where keys[i] <op> the bound: q0 for the
-// single-bound ops, any of qlist[0..m) for OP_IN (m = 0: none).
+// single-bound ops, any of qlist[0..m) for OP_IN (m = 0: none, and
+// qlist may be null).
 extern "C" int ctpu_scan_mask(const u64* keys, int n, int op, u64 q0,
                               const u64* qlist, int m, uint8_t* out,
                               void* stream) {

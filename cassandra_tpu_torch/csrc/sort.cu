@@ -1,7 +1,7 @@
 // The round sort: the stable lexicographic sort permutation of K1 (a
 // merge round), of the mesh step K8 (mesh.cu: the same code over S
-// segments, the shards, of N rows each) and of the plane programs K6
-// and K7 (planes.cu).
+// segments, the shards, of N rows each), of the plane programs K6 and
+// K7 (planes.cu) and of K10's winners on its select path (ann.cu).
 //
 // K1 replaces cassandra_tpu/ops/merge.py `_lsd_pass` as chained by
 // `_traced_sort_perm` (`device_sort_perm`): the sort over (valid,
@@ -17,8 +17,8 @@
 //
 // Bound on this card: bytes. Read once, K1's keys are (K + 3) * 4 B and
 // the permutation 4 B per row: at N = 2^24 and K = 13, 1.07 GB, 0.34 ms
-// at 3.35 TB/s; a K6 round reads 5-8 B a row. The first design
-// (`radix_sort_perm`, below, now K10's only) ran every key byte as a
+// at 3.35 TB/s; a K6 round reads 5-8 B a row. The first design (a
+// radix sort of the permutation, since deleted) ran every key byte as a
 // pass of three launches, reading its byte through the permutation
 // twice. This design, per call over S segments of a key of B bytes
 // (RoundKey, common.cuh):
@@ -81,93 +81,7 @@
 namespace ctpu {
 namespace {
 
-constexpr int SORT_THREADS = 256;
-constexpr int SORT_ROUNDS = 8;
-constexpr int SORT_TILE = SORT_THREADS * SORT_ROUNDS;
 constexpr int RADIX = 256;
-constexpr int SORT_WARPS = SORT_THREADS / 32;
-
-// ------------------------------------------------- radix_sort_perm (K10)
-
-__global__ void iota(int* p, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) p[i] = i;
-}
-
-__device__ __forceinline__ int digit_of(const SortKey& k, int shift,
-                                        int p) {
-  const long at = (long)p * k.stride;
-  uint32_t v;
-  if (k.width == 4)
-    v = static_cast<const uint32_t*>(k.p)[at];
-  else if (k.width == 2)
-    v = static_cast<const uint16_t*>(k.p)[at];
-  else
-    v = static_cast<const uint8_t*>(k.p)[at];
-  return (int)(((v ^ k.xmask) >> shift) & (RADIX - 1));
-}
-
-// Tile t holds rows [t * SORT_TILE, min((t + 1) * SORT_TILE, n)); its
-// histogram and offsets sit at hist[digit * tiles + t], so one exclusive
-// scan of the table gives every (digit, tile) its first output slot.
-__global__ void __launch_bounds__(SORT_THREADS)
-digit_hist(SortKey key, int shift, const int* perm, int n, int* hist) {
-  __shared__ int h[RADIX];
-  const int tid = threadIdx.x;
-  h[tid] = 0;
-  __syncthreads();
-  const int base = blockIdx.x * SORT_TILE;
-  for (int r = 0; r < SORT_ROUNDS; ++r) {
-    const int i = base + r * SORT_THREADS + tid;
-    if (i < n) atomicAdd(&h[digit_of(key, shift, perm[i])], 1);
-  }
-  __syncthreads();
-  hist[(long)tid * gridDim.x + blockIdx.x] = h[tid];
-}
-
-// A stable scatter: the tile is walked in rounds of 256 elements in
-// input order, `__match_any_sync` finds the lanes of a warp that share a
-// digit, per-warp digit counts in shared memory order the warps, and a
-// running per-digit count carries the order from one round to the next.
-__global__ void __launch_bounds__(SORT_THREADS)
-digit_scatter(SortKey key, int shift, const int* perm_in, int* perm_out,
-              int n, const int* offs) {
-  __shared__ int run[RADIX];
-  __shared__ int wcnt[SORT_WARPS][RADIX];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int w = tid >> 5;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  const int base = blockIdx.x * SORT_TILE;
-  run[tid] = offs[(long)tid * gridDim.x + blockIdx.x];
-  for (int r = 0; r < SORT_ROUNDS; ++r) {
-    for (int j = tid; j < SORT_WARPS * RADIX; j += SORT_THREADS)
-      (&wcnt[0][0])[j] = 0;
-    __syncthreads();
-    const int i = base + r * SORT_THREADS + tid;
-    const bool valid = i < n;
-    const int p = valid ? perm_in[i] : 0;
-    // out-of-range lanes take digit RADIX: they match only each other
-    const int d = valid ? digit_of(key, shift, p) : RADIX;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int rank = __popc(peers & lt_mask);
-    if (valid && lane == __ffs(peers) - 1) wcnt[w][d] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      int pos = run[d] + rank;
-      for (int w2 = 0; w2 < w; ++w2) pos += wcnt[w2][d];
-      perm_out[pos] = p;
-    }
-    __syncthreads();
-    int s = 0;
-#pragma unroll
-    for (int w2 = 0; w2 < SORT_WARPS; ++w2) s += wcnt[w2][tid];
-    run[tid] += s;
-    __syncthreads();
-  }
-}
-
-// ------------------------------------------ the round sort (K1, K6-K8)
 
 constexpr int PLAN_THREADS = 256;
 constexpr int PLAN_WORDS = 4;         // key planes per plan block
@@ -180,7 +94,7 @@ constexpr int PASS_TILE = PASS_THREADS * PASS_ITEMS;
 constexpr int PASS_WARPS = PASS_THREADS / 32;
 
 // Plane k's value of row i, xor'd with its mask.
-__device__ __forceinline__ uint32_t plane_val(const SortKey& k, long i) {
+__device__ __forceinline__ uint32_t plane_val(const KeyPlane& k, long i) {
   const long at = i * k.stride;
   uint32_t v;
   if (k.width == 4)
@@ -230,7 +144,7 @@ plan_hist(const __grid_constant__ RoundKey key, int N, int rows, int* hist,
     uint32_t x[PLAN_WORDS];
 #pragma unroll
     for (int w = 0; w < PLAN_WORDS; ++w) {
-      const SortKey& k = key.pl[w0 + w];
+      const KeyPlane& k = key.pl[w0 + w];
       x[w] = !act || w >= nw ? 0u
              : W4 ? static_cast<const uint32_t*>(k.p)[i * k.stride] ^ k.xmask
                   : plane_val(k, i);
@@ -626,38 +540,6 @@ RoundScratch carve(void* base, int S, int N, int B) {
 
 }  // namespace
 
-long radix_scratch_bytes(int n) {
-  const long tiles = (n + SORT_TILE - 1) / SORT_TILE;
-  const long hist = (long)RADIX * tiles;
-  return (hist + scan_scratch_elems(hist)) * (long)sizeof(int);
-}
-
-void radix_sort_perm(const SortKey* keys, int nk, int n, int* perm,
-                     int* perm_tmp, void* scratch, cudaStream_t s) {
-  const int tiles = (n + SORT_TILE - 1) / SORT_TILE;
-  const long hist_n = (long)RADIX * tiles;
-  int* hist = (int*)scratch;
-  int* scan_scr = hist + hist_n;
-  iota<<<grid_for(n, 256), 256, 0, s>>>(perm, n);
-  int* a = perm;
-  int* b = perm_tmp;
-  for (int q = 0; q < nk; ++q) {
-    for (int shift = 0; shift < 8 * keys[q].width; shift += 8) {
-      digit_hist<<<tiles, SORT_THREADS, 0, s>>>(keys[q], shift, a, n, hist);
-      scan_add_exclusive(hist, hist, hist_n, scan_scr, s);
-      digit_scatter<<<tiles, SORT_THREADS, 0, s>>>(keys[q], shift, a, b, n,
-                                                   hist);
-      int* t = a;
-      a = b;
-      b = t;
-    }
-  }
-  // an odd number of passes leaves the result in perm_tmp
-  if (a != perm)
-    cudaMemcpyAsync(perm, a, (size_t)n * sizeof(int),
-                    cudaMemcpyDeviceToDevice, s);
-}
-
 RoundKey round_key(uint32_t live_below) {
   RoundKey k;
   memset(&k, 0, sizeof(k));
@@ -668,7 +550,7 @@ RoundKey round_key(uint32_t live_below) {
 void round_key_add(RoundKey& key, const void* p, int stride, int width,
                    uint32_t xmask) {
   const int j = key.np++;
-  key.pl[j] = SortKey{p, stride, width, xmask};
+  key.pl[j] = KeyPlane{p, stride, width, xmask};
   key.first_byte[j] = (uint16_t)key.bytes;
   for (int t = 0; t < width; ++t)
     key.byte_at[key.bytes++] = (uint16_t)(j << 5 | 8 * (width - 1 - t));

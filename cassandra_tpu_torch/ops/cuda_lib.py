@@ -24,6 +24,7 @@ call's (both wait for the sorts they report on).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,7 +36,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("scan.cu", "sort.cu", "reconcile.cu", "compact.cu", "meta.cu",
-           "lzscan.cu", "planes.cu", "scanmask.cu", "ann.cu", "mesh.cu")
+           "lzscan.cu", "planes.cu", "scanmask.cu", "ann.cu", "mesh.cu",
+           "events.cu")
 HEADERS = ("common.cuh",)
 LIB = os.path.join(BUILD_DIR, "libctpu_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -246,8 +248,15 @@ _SIGNATURES = {
     "ctpu_scan_mask": (_I, [_P, _I, _I, _Q, _P, _I, _P, _P]),
     "ctpu_scan_fold_scratch_bytes": (_L, [_I]),
     "ctpu_scan_fold": (_I, [_P, _P, _I, _P, _P, _P]),
-    "ctpu_ann_scratch_bytes": (_L, [_I, _I]),
+    "ctpu_ann_k_fused": (_I, []),
+    "ctpu_ann_fused_scratch_bytes": (_L, [_I, _I]),
     "ctpu_ann_topk": (_I, [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "ctpu_ann_select_scratch_bytes": (_L, [_I, _I]),
+    "ctpu_ann_topk_select": (_I, [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                  _P]),
+    "ctpu_event_create": (_P, []),
+    "ctpu_event_record": (_I, [_P, _P]),
+    "ctpu_events_ms": (_I, [_P, _P, _I, _I, _P]),
     "ctpu_mesh_scratch_bytes": (_L, [_I, _I, _I]),
     "ctpu_mesh_step": (_I, [_P, _I] + [_P] * 9 + [_I, _I, _I, _I]
                        + [_P] * 7),
@@ -292,6 +301,67 @@ def is_cuda(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device!s}")
 
 
+_raw_stream = None
+
+
+def raw_stream(dev) -> int:
+    """The raw handle of `dev`'s current CUDA stream."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = getattr(
+            torch._C, "_cuda_getCurrentRawStream",
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(dev.index)
+
+
 def stream_of(t) -> int:
+    return raw_stream(t.device)
+
+
+_get_device = None
+
+
+def on_device(dev):
+    """The context for launching on `dev`: none when `dev` is already
+    the current device (the usual case; entering torch.cuda.device
+    costs more than a launch)."""
+    global _get_device
+    if _get_device is None:
+        import torch
+        _get_device = getattr(torch._C, "_cuda_getDevice",
+                              torch.cuda.current_device)
+    if dev.index is None or dev.index == _get_device():
+        return contextlib.nullcontext()
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch.cuda.device(dev)
+
+
+# Timing events of the profiling registry (service/profiling.py), as raw
+# handles of csrc/events.cu: one ctypes call to create or record one
+# (`ctpu_event_record`) and one to read a batch of pairs, where a
+# torch.cuda.Event costs several times that.
+
+
+def event_create(dev) -> int:
+    """A new timing event on `dev`."""
+    with on_device(dev):
+        ev = lib().ctpu_event_create()
+    if not ev:
+        raise RuntimeError("cudaEventCreate failed")
+    return ev
+
+
+def events_ms(pairs: list, wait: bool = False) -> list:
+    """The milliseconds of [(start, end)] event pairs, in order, up to
+    the first pair still pending (`wait`: wait for the first pair's end
+    first)."""
+    n = len(pairs)
+    starts = (ctypes.c_void_p * n)(*[p[0] for p in pairs])
+    ends = (ctypes.c_void_p * n)(*[p[1] for p in pairs])
+    ms = (ctypes.c_float * n)()
+    done = lib().ctpu_events_ms(starts, ends, n, int(wait), ms)
+    if done < 0:
+        raise RuntimeError(f"cudaEventElapsedTime failed: cudaError "
+                           f"{-1 - done}")
+    return ms[:done]

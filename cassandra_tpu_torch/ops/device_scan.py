@@ -28,7 +28,11 @@ The `scan_device_filter` gate picks the leg: on, the predicate mask
 and the count/min/max fold are kernel K9 (csrc/scanmask.cu) on the
 store's torch device, with the u64 keys as native 64-bit words (torch
 carries them as int64 bit patterns); off, the numpy `mask_host`. Both
-legs compute identical results. With the gate on nothing falls back to
+legs compute identical results. A scan masks a run of consecutive
+device-gated segments of one source with one launch (`mask_run`, at
+most RUN_KEYS keys): the keys go to the card in one copy from pinned
+memory and the mask comes back in one, with one wait per run. With
+the gate on nothing falls back to
 the host: a CUDA device launches the kernel or raises, and only a CPU
 device runs K9's plain PyTorch version (`scan_mask_plain`,
 `scan_fold_plain`). The NaN fix-up (`nan_fix`) and the SUM stay on the
@@ -355,6 +359,13 @@ SCAN_OPS = {"eq": 0, "ne": 1, "lt": 2, "ge": 3, "gt": 4, "le": 5,
 _SIGN_I64 = -(1 << 63)
 
 
+#: keys per K9 launch of a scan's run of segments (8 MB of keys, 1 MB
+#: of mask): a run ends at a host-gated segment, at the end of a source,
+#: or before a segment that would take it past this cap, which bounds
+#: the segments a scan holds until their mask is back (16 full ones)
+RUN_KEYS = 1 << 20
+
+
 def keys_tensor(keys: np.ndarray, device) -> torch.Tensor:
     """u64 keys (numpy) as the int64 tensor of their bit patterns."""
     return torch.from_numpy(np.ascontiguousarray(
@@ -381,18 +392,22 @@ def _scan_mask_cuda(keys: torch.Tensor, kop: str,
                     qkeys: np.ndarray) -> torch.Tensor:
     dev = keys.device
     n = keys.shape[0]
-    _check(keys, "keys", torch.int64, (n,), dev)
+    if keys.dtype != torch.int64 or keys.dim() != 1 \
+            or not keys.is_contiguous():
+        _check(keys, "keys", torch.int64, (n,), dev)     # raises
     op = SCAN_OPS[kop]
-    qkeys = np.ascontiguousarray(qkeys, dtype=np.uint64)
     lib = cuda_lib.lib()
-    with torch.cuda.device(dev):
+    with cuda_lib.on_device(dev):
         out = torch.empty(n, dtype=torch.bool, device=dev)
-        qlist = keys_tensor(qkeys, dev) if kop == "in" else keys[:0]
-        q0 = int(qkeys[0]) if kop != "in" and len(qkeys) else 0
-        rc = lib.ctpu_scan_mask(keys.data_ptr(), n, op, q0,
-                                qlist.data_ptr(), qlist.shape[0],
-                                out.data_ptr(), cuda_lib.stream_of(keys))
-        cuda_lib.check(rc, "ctpu_scan_mask")
+        if kop == "in":
+            qlist = keys_tensor(qkeys, dev)
+            q0, qptr, m = 0, qlist.data_ptr(), qlist.shape[0]
+        else:   # the single bound by value; no list (a null pointer)
+            q0, qptr, m = int(qkeys[0]) if len(qkeys) else 0, None, 0
+        rc = lib.ctpu_scan_mask(keys.data_ptr(), n, op, q0, qptr, m,
+                                out.data_ptr(), cuda_lib.raw_stream(dev))
+        if rc:
+            cuda_lib.check(rc, "ctpu_scan_mask")
         cuda_lib.count_launch("scan.mask", n)
     return out
 
@@ -403,7 +418,7 @@ def scan_mask(keys: torch.Tensor, kop: str,
     (qkeys[0]; any of qkeys for "in", none when qkeys is empty; every
     key for "all"). keys: int64[n] bit patterns of the u64 keys. CUDA
     tensors launch the kernel; CPU tensors run `scan_mask_plain`."""
-    if cuda_lib.is_cuda(keys):
+    if keys.is_cuda or cuda_lib.is_cuda(keys):
         return _scan_mask_cuda(keys, kop, qkeys)
     return scan_mask_plain(keys, kop, qkeys)
 
@@ -430,7 +445,7 @@ def _scan_fold_cuda(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     _check(keys, "keys", torch.int64, (n,), dev)
     _check(mask, "mask", torch.bool, (n,), dev)
     lib = cuda_lib.lib()
-    with torch.cuda.device(dev):
+    with cuda_lib.on_device(dev):
         out = torch.empty(3, dtype=torch.int64, device=dev)
         scratch = torch.empty(int(lib.ctpu_scan_fold_scratch_bytes(n)),
                               dtype=torch.uint8, device=dev)
@@ -452,6 +467,39 @@ def scan_fold(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 scan_fold = _kprof.wrap("scan.fold", scan_fold, cost=costs.of("scan.fold"))
+
+
+def mask_run(keys_list: list, pred: CompiledPredicate,
+             device=None) -> list:
+    """K9 on `device` (default `cuda`) over the keys of a run of
+    segments (numpy u64 arrays) in ONE launch, split back into one mask
+    per segment, each bit-identical to `segment_mask`'s device leg (the
+    NaN fix-up included). On a card the keys are staged in pinned host
+    memory, copied once, and the mask comes back into pinned memory
+    with one wait; the buffers belong to the call (mesh lanes scan on
+    several threads at once)."""
+    dev = devmod.resolve(device)
+    if not keys_list:
+        return []
+    sizes = [len(k) for k in keys_list]
+    n = sum(sizes)
+    if dev.type == "cuda":
+        staged = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        keys = staged.numpy().view(np.uint64)
+        np.concatenate(keys_list, out=keys)
+        with cuda_lib.on_device(dev):
+            mt = scan_mask(staged.to(dev, non_blocking=True), pred.kop,
+                           pred.qkeys)
+            back = torch.empty(n, dtype=torch.bool, pin_memory=True)
+            back.copy_(mt, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+        mask = back.numpy()
+    else:
+        keys = np.concatenate(keys_list)
+        mask = scan_mask(keys_tensor(keys, dev), pred.kop,
+                         pred.qkeys).numpy()
+    mask = nan_fix(mask, keys, pred)
+    return np.split(mask, np.cumsum(sizes)[:-1])
 
 
 def mask_device(keys: np.ndarray, pred: CompiledPredicate,
@@ -501,7 +549,7 @@ def segment_mask(keys: np.ndarray, pred: CompiledPredicate,
     """(mask, ran_on_device). use_device: K9 on `device` (default
     `cuda`), which launches or raises; else the numpy mask."""
     if use_device:
-        return nan_fix(mask_device(keys, pred, device), keys, pred), True
+        return mask_run([keys], pred, device)[0], True
     return nan_fix(mask_host(keys, pred), keys, pred), False
 
 

@@ -1218,9 +1218,32 @@ class ColumnFamilyStore:
         info = dict.fromkeys(_KEYS, 0)
 
         def _scan_sources(view, lo, hi):
-            """Candidate pks among `view` for tokens in (lo, hi]."""
+            """Candidate pks among `view` for tokens in (lo, hi]. The
+            device-gated segments of a source are masked in runs of up
+            to ds.RUN_KEYS keys, one K9 launch each; a host-gated
+            segment, the end of the source and the cap end a run."""
             pks = set()
             loc = dict.fromkeys(_KEYS, 0)
+            run: list = []              # [(batch, sel, keys)]
+
+            def collect(batch, sel, mask):
+                hit = sel[mask]
+                if not len(hit):
+                    return
+                toks = batch_tokens(batch)[hit]
+                for i in hit[(toks > lo) & (toks <= hi)]:
+                    pks.add(batch.partition_key(int(i)))
+
+            def flush():
+                if not run:
+                    return
+                with st_filter.busy():
+                    masks = ds.mask_run([keys for _b, _s, keys in run],
+                                        pred, device=self.device)
+                for (batch, sel, _keys), mask in zip(run, masks):
+                    collect(batch, sel, mask)
+                run.clear()
+
             for sst in view:
                 try:
                     span = sst.segment_range_for_tokens(lo, hi)
@@ -1238,6 +1261,7 @@ class ColumnFamilyStore:
                     if n_keep == 0:
                         loc["sstables_skipped"] += 1
                         continue
+                    run_keys = 0
                     for s in range(s0, s1):
                         if not keep[s - s0]:
                             continue
@@ -1247,20 +1271,28 @@ class ColumnFamilyStore:
                                 batch, pred, reconciled=False)
                             if not len(sel):
                                 continue
-                            mask, on_dev = ds.segment_mask(
-                                keys, pred, bool(gate()),
-                                device=self.device)
+                            on_dev = bool(gate())
                         loc["device_segments" if on_dev
                             else "host_segments"] += 1
                         st_filter.add_items(len(sel))
-                        hit = sel[mask]
-                        if not len(hit):
+                        if on_dev:
+                            if run_keys + len(keys) > ds.RUN_KEYS:
+                                flush()
+                                run_keys = 0
+                            run.append((batch, sel, keys))
+                            run_keys += len(keys)
                             continue
-                        toks = batch_tokens(batch)[hit]
-                        for i in hit[(toks > lo) & (toks <= hi)]:
-                            pks.add(batch.partition_key(int(i)))
+                        flush()
+                        run_keys = 0
+                        with st_filter.busy():
+                            mask, _ = ds.segment_mask(keys, pred, False)
+                        collect(batch, sel, mask)
+                    flush()
                 except (CorruptSSTableError, OSError) as e:
-                    # sharded scans degrade per SOURCE like scan_window
+                    # the segments read before the fault count, as they
+                    # did one by one; then the SOURCE degrades, as in
+                    # scan_window
+                    flush()
                     self._degrade_on_corruption(sst, e)
                     continue
             return pks, loc

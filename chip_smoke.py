@@ -23,11 +23,15 @@ result line:
               programs, on synthetic v3 / v2 rounds padded to 524,288 and
               786,432 (the K7 round holds partition, row and complex
               deletions, equal stamps and padding, and must give keep,
-              ambiguous and shadowed rows); K9, the scan mask (eight ops)
-              and fold, on 65,536 u64 keys with the edge keys; K10, vector
-              search, on a 1,000,000 x 128 gaussian matrix for the three
-              similarities and k = 10 and 100 (equal indices, scores
-              within ANN_TOL); K8, the mesh step, on [4, 2^20]
+              ambiguous and shadowed rows); K9, the scan mask (eight ops,
+              at a segment's 65,536 u64 keys and at a run's cap of 2^20,
+              timed over SCAN_REPS calls) and fold, on keys with the edge
+              keys; K10, vector search, on a 1,000,000 x 128 gaussian
+              matrix for the three similarities at k = 10 and 100 (the
+              fused path; its output equal to the select path's bit for
+              bit) and at the first k above K_FUSED whose top k is
+              decided (the select path): equal indices, scores within
+              ANN_TOL; K8, the mesh step, on [4, 2^20]
               synthetic shards (a full and an empty shard, two full
               shards of one hot cell side by side). K1, K6, K7 and K8
               also print the round sort's passes run (of their key
@@ -67,7 +71,10 @@ result line:
               cells), then at the engine's default of no mesh lanes with
               the knob on: (a) and (b'). The counters are reset before
               each query and read after it; every query must equal a
-              numpy oracle over the generated data. emb (id int, c int,
+              numpy oracle over the generated data. Per query it prints
+              the `scan` ledger's `filter` stage seconds and Phase A's K9
+              launches (one per run of segments), which must be at most
+              the runs that the cap and the gate allow. emb (id int, c int,
               v vector<float, 128>) with a SAI index: 1,000,000 gaussian
               rows; ORDER BY v ANN OF [...] LIMIT 10 and 100 through CQL
               (cosine) and VectorIndex.ann for dot, euclidean and
@@ -91,8 +98,8 @@ result line:
               on each case's own operands.
   7. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
-              its partition's end pads to 2^20; the scan mask's segment
-              remainders and the fold's candidate count; K8's [S, N]).
+              its partition's end pads to 2^20; the scan mask's runs of
+              segments and the fold's candidate count; K8's [S, N]).
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel: route, source, the JAX function it replaces, launches over the
@@ -129,6 +136,10 @@ ROUND_CELLS = (1 << 19) - (1 << 15)  # CompactionTask.ROUND_CELLS_DEVICE
 ROUND_PAD = 1 << 19                  # merge._bucket(ROUND_CELLS)
 LANES = 13                           # int pk + int ck table
 SEGMENT = 65_536                     # storage/sstable/format.py
+RUN_KEYS = 1 << 20                   # ops/device_scan.py: K9's keys a run
+# calls per CUDA-event window of K9's mask and torch.eq: a call takes
+# tens of microseconds of the host, so a short window measures noise
+SCAN_REPS = 200
 # merge._plane_pad of a device round: 2^19, or 3 x 2^18 past it
 PLANE_PADS = (1 << 19, 3 << 18)
 STCS_RUNS = 4
@@ -799,7 +810,8 @@ def check_scanmask(seed: int, n: int, res: dict) -> None:
         torch.cuda.synchronize()
         err = max(err, max_abs_err(m, mp))
         hits[op] = int(m.sum())
-        ops_ms[op] = cuda_ms(lambda: ds.scan_mask(kc, op, qk))
+        ops_ms[op] = cuda_ms(lambda: ds.scan_mask(kc, op, qk),
+                             reps=SCAN_REPS)
     need(err == 0, f"K9 scan_mask at n={n}: kernel != plain")
     q_i64 = int(q1.view(np.int64)[0])
     need(torch.equal(ds.scan_mask(kc, "eq", q1), kc == q_i64),
@@ -810,7 +822,7 @@ def check_scanmask(seed: int, n: int, res: dict) -> None:
     _entry(res, "K9", "scan.mask", n, err=err, ms=ops_ms["eq"],
            plain_ms=cuda_ms(lambda: ds.scan_mask_plain(kc, "eq", q1),
                             reps=3),
-           library_ms=cuda_ms(lambda: torch.eq(kc, q_i64)),
+           library_ms=cuda_ms(lambda: torch.eq(kc, q_i64), reps=SCAN_REPS),
            graph_ms=graph_ms(lambda: raw(kc, "eq", q1)),
            library_graph_ms=graph_ms(lambda: torch.eq(kc, q_i64)),
            ops_ms=ops_ms, hits=hits, **work("scan_mask", n))
@@ -841,30 +853,51 @@ def check_scanfold(seed: int, n: int, res: dict) -> None:
            **work("scan_fold", n))
 
 
+def select_k(srt: dict) -> int:
+    """The k above the fused path's K_FUSED checked on the select path:
+    the first from K_FUSED + 1 whose k-th and (k+1)-th scores are
+    further apart than the tolerance for every similarity (`srt`: each
+    similarity's scores, sorted descending), so that the top k is
+    decided at float32 precision."""
+    from cassandra_tpu_torch.ops import ann
+    for k in range(ann.K_FUSED + 1, ann.K_FUSED + 65):
+        if all(float(v[k - 1] - v[k]) > ANN_TOL[sim]
+               for sim, v in srt.items()):
+            return k
+    raise SmokeError("K10: no k in K_FUSED + 1..64 whose top k is decided")
+
+
 def check_ann(seed: int, n: int, res: dict, d: int = ANN_DIM) -> None:
     """K10 against its plain version on an n x d gaussian matrix on the
-    card for the three similarities and k = 10 and 100: equal indices,
-    scores within ANN_TOL, and the plain version's k-th and (k+1)-th
-    scores further apart than the tolerance (else the top k is not
-    decided at float32 precision). The numbers kept at the top are
-    dot at k = 10, which torch.topk(m @ q, k) also computes."""
-    from cassandra_tpu_torch.ops import ann
+    card for the three similarities, at k = 10 and 100 (the fused path)
+    and at one k above K_FUSED (the select path): equal indices, scores
+    within ANN_TOL, and the plain version's k-th and (k+1)-th scores
+    further apart than the tolerance (else the top k is not decided at
+    float32 precision); at k = 10 and 100 the fused path's output also
+    equals the select path's bit for bit on the same inputs (both
+    timed). The numbers kept at the top are dot at k = 10, which
+    torch.topk(m @ q, k) also computes."""
+    from cassandra_tpu_torch.ops import ann, cuda_lib
 
     dev = torch.device(DEVICE)
+    need(cuda_lib.lib().ctpu_ann_k_fused() == ann.K_FUSED,
+         "K10: the kernel's K_FUSED differs from ops/ann.py's")
     g = torch.Generator(device=dev).manual_seed(seed + 8)
     m = torch.randn(n, d, generator=g, device=dev)
     q = torch.randn(d, generator=g, device=dev)
     qn = q / q.norm().clamp_min(1e-9)
+    queries = {sim: qn if sim == "cosine" else q for sim in ann.SIMILARITIES}
+    srt = {sim: torch.sort(ann.scores_plain(m, qq, sim),
+                           descending=True).values
+           for sim, qq in queries.items()}
+    ks = ANN_KS + (select_k(srt),)
     cases, err = {}, 0.0
-    for sim in ann.SIMILARITIES:
-        qq = qn if sim == "cosine" else q
-        full = ann.scores_plain(m, qq, sim)
-        srt = torch.sort(full, descending=True).values
-        for k in ANN_KS:
+    for sim, qq in queries.items():
+        for k in ks:
             s, i = ann.ann_topk(m, qq, k, sim)
             sp, ip = ann.ann_topk_plain(m, qq, k, sim)
             torch.cuda.synchronize()
-            gap = float(srt[k - 1] - srt[k])
+            gap = float(srt[sim][k - 1] - srt[sim][k])
             need(gap > ANN_TOL[sim], f"K10 {sim} k={k}: the k-th and "
                  f"(k+1)-th scores are {gap} apart, within the tolerance")
             need(torch.equal(i, ip), f"K10 {sim} k={k}: kernel indices "
@@ -873,13 +906,24 @@ def check_ann(seed: int, n: int, res: dict, d: int = ANN_DIM) -> None:
             need(e <= ANN_TOL[sim], f"K10 {sim} k={k}: scores differ by "
                                     f"{e} > {ANN_TOL[sim]}")
             err = max(err, e)
+            fused = k <= ann.K_FUSED
+            select_ms = None
+            if fused:
+                ss, si = ann.ann_topk_select_cuda(m, qq, k, sim)
+                need(torch.equal(si, i) and torch.equal(
+                    ss.view(torch.int32), s.view(torch.int32)),
+                    f"K10 {sim} k={k}: the fused path != the select path")
+                select_ms = cuda_ms(
+                    lambda: ann.ann_topk_select_cuda(m, qq, k, sim), reps=5)
             lib = None
             if sim == "dot":
                 li = torch.topk(m @ qq, k).indices.to(torch.int32)
                 need(torch.equal(li, i), "K10: torch.topk disagrees")
                 lib = cuda_ms(lambda: torch.topk(m @ qq, k), reps=5)
             cases[f"{sim}/k={k}"] = {
+                "path": "fused" if fused else "select",
                 "ms": cuda_ms(lambda: ann.ann_topk(m, qq, k, sim), reps=5),
+                "select_ms": select_ms,
                 "plain_ms": cuda_ms(
                     lambda: ann.ann_topk_plain(m, qq, k, sim), reps=2),
                 "library_ms": lib, "max_abs_err": e,
@@ -1033,7 +1077,11 @@ def print_checks(res: dict, sizes: dict) -> None:
                 for case, c in r["cases"].items():
                     lib = ("n/a" if c["library_ms"] is None
                            else f"{c['library_ms']:.4f}")
-                    print(f"  K10 {case}: kernel {c['ms']:.4f} ms, plain "
+                    sel = ("" if c["select_ms"] is None else
+                           f", the select path {c['select_ms']:.4f} ms "
+                           "(bit-equal)")
+                    print(f"  K10 {case} ({c['path']} path): kernel "
+                          f"{c['ms']:.4f} ms{sel}, plain "
                           f"{c['plain_ms']:.4f} ms, library {lib} ms, "
                           f"bound {c['bound_ms']:.4f} ms, max abs err "
                           f"{c['max_abs_err']:.3g}, k-th gap "
@@ -1442,10 +1490,14 @@ def phase_read(seed: int, partitions: int, ann_rows: int, work: str) -> dict:
     before each leg and read just after."""
     from cassandra_tpu_torch.cql import Session
     from cassandra_tpu_torch.ops import cuda_lib
+    from cassandra_tpu_torch.ops import device_scan as ds
     from cassandra_tpu_torch.schema import Schema
     from cassandra_tpu_torch.service.metrics import GLOBAL as METRICS
     from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.utils import pipeline_ledger
 
+    need(ds.RUN_KEYS == RUN_KEYS, "read: device_scan.RUN_KEYS moved")
+    st_filter = pipeline_ledger.ledger("scan").stage("filter")
     if (partitions, ann_rows) != (SCAN_PARTITIONS, ANN_ROWS):
         print(json.dumps({"reduced": {
             "scan_partitions": partitions, "published": SCAN_PARTITIONS,
@@ -1512,6 +1564,8 @@ def phase_read(seed: int, partitions: int, ann_rows: int, work: str) -> dict:
             for tag in tags:
                 q, params, want = queries[tag]
                 f0 = METRICS.counter("scan.fallback")
+                d0 = METRICS.counter("scan.device_segments")
+                b0, i0 = st_filter.busy_s, st_filter.items
                 torch.cuda.synchronize()
                 cuda_lib.reset_launches()
                 t0 = time.perf_counter()
@@ -1525,9 +1579,25 @@ def phase_read(seed: int, partitions: int, ann_rows: int, work: str) -> dict:
                            if k in ids and v2}
                 shown = (f"{len(rows)} rows" if tag == "(a)"
                          else str(rows))
+                # Phase A's masks: the K9 launches beside the aggregate
+                # fold's (one mask per fold); at most one run per (lane,
+                # source) and one more per half cap of device keys (two
+                # neighbouring runs hold more than the cap)
+                dev_segs = METRICS.counter("scan.device_segments") - d0
+                phase_a = launches["K9"] - launches["K9f"]
+                runs_max = min(dev_segs, max(lanes, 1) * SCAN_RUNS + 2 * (
+                    st_filter.items - i0) // ds.RUN_KEYS)
+                filter_s = st_filter.busy_s - b0
                 print(f"  read [{name}] {tag}: {shown} in {ms:.1f} ms; K9 "
-                      f"launches: mask {launches['K9']}, fold "
-                      f"{launches['K9f']}; by size {by_size}", flush=True)
+                      f"launches: mask {launches['K9']} (Phase A "
+                      f"{phase_a}, at most {runs_max} runs over "
+                      f"{dev_segs} device segments), fold "
+                      f"{launches['K9f']}; filter stage {filter_s:.4f} s; "
+                      f"by size {by_size}", flush=True)
+                if on:
+                    need(0 < phase_a <= runs_max,
+                         f"read [{name}] {tag}: {phase_a} Phase A masks, "
+                         f"more than the {runs_max} runs the cap allows")
                 need(sorted(rows) == want,
                      f"read [{name}] {tag}: {len(rows)} rows "
                      f"{rows[:3]}, the oracle {len(want)} {want[:3]}")
@@ -1548,7 +1618,8 @@ def phase_read(seed: int, partitions: int, ann_rows: int, work: str) -> dict:
                          f"off")
                 out.setdefault(tag, set()).add(repr(sorted(rows)))
                 legs.append({"name": "read", "src": f"{name} {tag}",
-                             "launches": launches, "ms": ms})
+                             "launches": launches, "ms": ms,
+                             "filter_s": filter_s})
         need(all(len(r) == 1 for r in out.values()),
              "read: the legs returned different results")
         eng.settings.set("scan_device_filter", True)
@@ -1980,7 +2051,8 @@ def main(argv=None) -> int:
     planned = {kid: {ROUND_PAD} for kid in ROUND_KERNELS}
     planned["K4"] = planned["K5"] = {SEGMENT}
     planned["K6"] = planned["K7"] = set(PLANE_PADS)
-    planned["K9"] = planned["K9f"] = {SEGMENT}
+    planned["K9"] = {SEGMENT, RUN_KEYS}
+    planned["K9f"] = {SEGMENT}
     planned["K10"] = {ANN_ROWS}
     planned["K8"] = {(MESH_SHARDS, 1 << 20)}       # the skewed-1M step
     phase_kernels(args.seed, planned, res)

@@ -223,3 +223,38 @@ def test_device_programs_cost_columns(tmp_path):
     for name, (nbytes, flops) in want.items():
         assert rows[name] == (nbytes, flops), name
         assert nbytes > 0
+
+
+@pytest.mark.cuda
+def test_pooled_events_time_every_call():
+    """The profiling registry's timing events come from a pool per
+    device: on the card, every call of a wrapped kernel still adds its
+    interval (device_calls == calls) and device_s grows. Needs a card;
+    the test imports no jax, so it also runs on a machine without one:
+
+        python -m pytest --noconftest tests/test_torch_admin.py -m cuda
+    """
+    import numpy as np
+    import torch
+
+    from cassandra_tpu_torch.ops import device_scan as ds
+    from cassandra_tpu_torch.service import profiling
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the timing events are CUDA's")
+    keys = ds.keys_tensor(np.arange(70_000, dtype=np.uint64), "cuda")
+    q = np.array([5], np.uint64)
+    calls = 3 * profiling.DRAIN_EVERY + 7
+
+    def row():
+        return profiling.GLOBAL.snapshot()["kernels"].get(
+            "scan.mask", {"calls": 0, "device_calls": 0, "device_s": 0.0})
+
+    torch.cuda.synchronize()
+    before = row()
+    for _ in range(calls):
+        ds.scan_mask(keys, "lt", q)
+    torch.cuda.synchronize()
+    after = row()
+    assert after["calls"] - before["calls"] == calls
+    assert after["device_calls"] - before["device_calls"] == calls
+    assert after["device_s"] > before["device_s"]

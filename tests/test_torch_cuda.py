@@ -327,10 +327,11 @@ def test_submits_return_while_the_stream_is_busy():
             _same_batch(got, collect(submit(batches, device="cpu")))
 
 
-@pytest.mark.parametrize("n", [1, 4099, 65_536])
+@pytest.mark.parametrize("n", [1, 4099, 65_536, 1 << 20])
 def test_scan_mask_and_fold_match_plain(n):
     """K9's eight ops (IN with 0 and several keys) and the fold, on keys
-    over the whole u64 range with the edge keys, exact."""
+    over the whole u64 range with the edge keys, exact; at a segment's
+    65,536 keys and at a scan run's cap (device_scan.RUN_KEYS)."""
     from cassandra_tpu_torch.ops import device_scan as ds
     dev = _card()
     rng = np.random.default_rng(n)
@@ -357,7 +358,8 @@ def test_scan_mask_and_fold_match_plain(n):
 
 @pytest.mark.parametrize("sim", ["cosine", "dot", "euclidean"])
 @pytest.mark.parametrize("n,d,k", [(1000, 128, 10), (5000, 7, 100),
-                                   (300, 64, 300)])
+                                   (300, 64, 300), (3000, 128, 257),
+                                   (700, 128, 700)])
 def test_ann_topk_matches_plain(sim, n, d, k):
     """K10 against its plain version: the same indices, scores within
     1e-5 (float sums in another order), and exact ties (repeated rows)
@@ -379,6 +381,98 @@ def test_ann_topk_matches_plain(sim, n, d, k):
         sp, ip = ann.ann_topk_plain(mc, qc, k, sim)
         assert torch.equal(i, ip), (sim, n, d, k)
         torch.testing.assert_close(s, sp, rtol=1e-5, atol=1e-5)
+
+
+def _ann_matrix(kind: str, n: int, d: int, seed: int):
+    """A gaussian matrix with rows 3 repeated (exact ties), or one whose
+    dot scores against q = e0 rise with the row ("ascending": every row
+    beats the rows before it, so each block merges its buffer as often
+    as it can)."""
+    rng = np.random.default_rng(seed)
+    if kind == "ascending":
+        m = rng.standard_normal((n, d)).astype(np.float32) * 1e-3
+        m[:, 0] = np.arange(n, dtype=np.float32)
+        q = np.zeros(d, np.float32)
+        q[0] = 1.0
+        return m, q
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    m[n // 2:n // 2 + 5] = m[3]
+    q = rng.standard_normal(d).astype(np.float32)
+    return m, q / np.linalg.norm(q)
+
+
+@pytest.mark.parametrize("sim", ["cosine", "dot", "euclidean"])
+@pytest.mark.parametrize("kind,n,d", [("gaussian", 200_000, 128),
+                                      ("gaussian", 3000, 7),
+                                      ("gaussian", 5000, 256),
+                                      ("ascending", 100_000, 128)])
+@pytest.mark.parametrize("k", [1, 10, 256])      # 256: K_FUSED
+def test_ann_fused_equals_select(sim, kind, n, d, k):
+    """K10's fused path (k <= K_FUSED) gives the select path's bits, and
+    the plain version's indices, at the fused path's edges: k = 1, 10
+    and K_FUSED, rows tied, every row a survivor (ascending; held to
+    the plain version for dot, whose scores there are exact)."""
+    from cassandra_tpu_torch.ops import ann
+    dev = _card()
+    assert cuda_lib.lib().ctpu_ann_k_fused() == ann.K_FUSED
+    m, q = _ann_matrix(kind, n, d, n + d + k)
+    mc, qc = torch.from_numpy(m).to(dev), torch.from_numpy(q).to(dev)
+    s_f, i_f = ann.ann_topk_fused_cuda(mc, qc, k, sim)
+    s_s, i_s = ann.ann_topk_select_cuda(mc, qc, k, sim)
+    assert torch.equal(i_f, i_s), (sim, kind, n, d, k)
+    assert torch.equal(s_f.view(torch.int32), s_s.view(torch.int32))
+    if kind == "gaussian" or sim == "dot":
+        sp, ip = ann.ann_topk_plain(mc, qc, k, sim)
+        assert torch.equal(i_f, ip)
+        torch.testing.assert_close(s_f, sp, rtol=1e-5, atol=1e-5)
+    before = cuda_lib.launches()["index.ann"]
+    ann.ann_topk(mc, qc, k, sim)                # k <= K_FUSED: fused
+    assert cuda_lib.launches()["index.ann"] == before + 1
+
+
+def test_scan_filtered_runs_match_the_knob_off():
+    """Phase A on the card over small segments (a cap of two and a bit):
+    the same candidates as the numpy masks, one K9 launch per run of
+    device-gated segments, each of the run's keys."""
+    import tempfile
+
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.index import sstable_index as ssi
+    from cassandra_tpu_torch.ops import device_scan as ds
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.storage import cellbatch as cb
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.storage.sstable import (Descriptor,
+                                                     SSTableWriter)
+    from cassandra_tpu_torch.tools import bulk
+    from scan_runs import CAP, runs, segment_keys, write_sources
+    dev = _card()
+    root = tempfile.mkdtemp(prefix="scan-runs-")
+    eng = StorageEngine(os.path.join(root, "d"), Schema(),
+                        commitlog_sync="batch", device=dev)
+    saved = ds.RUN_KEYS
+    try:
+        cfs = write_sources(eng, Session(eng), (cb, bulk, Descriptor,
+                                                SSTableWriter), 5)
+        pred = ds.compile_predicate(cfs.table,
+                                    [(cfs.table.columns["v"], "<", 0)])
+        want, off = cfs.scan_filtered(pred, use_device=False)
+        ds.RUN_KEYS = CAP
+        cuda_lib.reset_launches()
+        got, on = cfs.scan_filtered(pred, use_device=True)
+        torch.cuda.synchronize()
+        assert [pk for pk, _ in got] == [pk for pk, _ in want]
+        assert on["device_segments"] == off["host_segments"] > 0
+        expect = runs(segment_keys(cfs, pred, ssi, ds),
+                      [True] * on["device_segments"], CAP)
+        assert cuda_lib.launches()["scan.mask"] == len(expect)
+        assert cuda_lib.launch_sizes()["scan.mask"] == {
+            size: expect.count(size) for size in set(expect)}
+    finally:
+        ds.RUN_KEYS = saved
+        eng.close()
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def test_ann_limit_below_one_launches_nothing():
