@@ -12,9 +12,8 @@
 namespace ctpu {
 
 // Device-wide prefix scans over int32 (scan.cu), shared by K10's
-// select path, the round sort's live/pad split (K1, K6, K7, K8), the
-// reconcile's segment starts (K2, K7) and the kept-first compaction
-// (K3). Three phases: each block scans its tile
+// select path, the round sort's live/pad split (K1, K6, K7, K8), K7's
+// segment starts and the kept-first compaction (K3). Three phases: each block scans its tile
 // in shared memory and writes its total, the totals are scanned by the
 // same routine (recursively), and the carries are added back. In place
 // (in == out) is allowed.
@@ -93,7 +92,8 @@ cudaError_t round_sort_perm(const RoundKey& key, int S, int N, int* perm,
 // in segments of seg_len rows: a segment's first row starts a
 // partition whatever its lanes (seg_len = n for one round; the mesh
 // step's shards for K8). packed (u8[n]) receives the masks in sorted
-// order.
+// order. One memset of the scratch's head and one kernel; the scratch
+// (reconcile_scratch_bytes) belongs to the call.
 struct RecIn {
   const uint32_t* lanes;
   const uint32_t* ts_h;

@@ -28,7 +28,7 @@
 //     (shard, live or pad), with the lengths its plan returned, so tiles
 //     never cross a range's edge, and each range's rows land inside
 //     [s N, (s + 1) N). No pass is spent on a shard id.
-//   - Reconcile: reconcile.cu's boundary, max-scan and final passes with
+//   - Reconcile: reconcile.cu's one tiled kernel (after its memset) with
 //     a partition start forced at every s N. A full shard (N live rows)
 //     has no padding row after it, so its first row must not be compared
 //     with the previous shard's last: the segment start is forced, not

@@ -36,7 +36,7 @@
 //
 // The tails: K6 is one pass over the sorted rows (a row reads its
 // predecessor through the permutation; the run offsets sit in shared
-// memory). K7 is K2's structure (reconcile.cu): a boundary pass that
+// memory). K7's is a boundary pass that
 // writes `is_start ? i : 0` per fill, three inclusive max-scans
 // (scan.cu) that turn them into segment starts, and a final pass that
 // reads each stamp at its segment's start.

@@ -239,7 +239,7 @@ _SIGNATURES = {
     "ctpu_compact_gather": (_I, [_P, _P, _I, _I] + [_P] * 8
                             + [_P, _P] + [_P] * 8 + [_P, _P]),
     "ctpu_meta_block": (_I, [_P] * 7 + [_I, _I, _P, _P, _P]),
-    "ctpu_lzscan_scratch_bytes": (_L, [_L]),
+    "ctpu_lzscan_scratch_bytes": (_L, [_L, _L]),
     "ctpu_segment_scan": (_I, [_P, _I, _P, _I, _I] + [_P] * 8),
     "ctpu_planes_scratch_bytes": (_L, [_I, _I]),
     "ctpu_plane_fast": (_I, [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]),

@@ -16,7 +16,9 @@ u32-lexicographic order check of the lane rows, and the policy match
 scans of the META block and of the planes. Its plain PyTorch version
 sits beside it (`segment_scan_plain`, on `policy_scan_plain`); the
 wrapper runs it for tensors on the CPU and only then; for CUDA tensors
-it launches the kernel or raises. The test entry `compress_torch`
+it launches the kernel or raises. `policy_scan_tiled_plain` mirrors
+the kernel's design (word compares, tiles with carried mismatches) for
+the tests and chip_smoke.py. The test entry `compress_torch`
 scans one block as a segment with no lane rows.
 
 Three implementations, one contract:
@@ -46,6 +48,10 @@ MINMATCH = 4
 # SMALLEST distance.
 DISTANCES = tuple(range(1, 65)) + (128, 256, 512, 1024, 2048, 4096,
                                    8192, 16384, 32768)
+# csrc/lzscan.cu: bytes a tile of the scan, and the inputs' limit (a
+# position's key, run * 128 + 127 - distance index, fits 32 bits)
+LZ_TILE = 4096
+MAX_SCAN_BYTES = 1 << 25
 
 
 # ------------------------------------------------------------- scans -----
@@ -100,9 +106,78 @@ def policy_scan_plain(src: torch.Tensor):
     return best_len.flip(0), best_d.flip(0)
 
 
-def _scratch(lib, n: int, dev) -> torch.Tensor:
-    return torch.empty(max(int(lib.ctpu_lzscan_scratch_bytes(n)), 4),
-                       dtype=torch.uint8, device=dev)
+_ALL = 0x80808080           # 0x80 in each byte of a word
+
+
+def _lowest_byte(m: torch.Tensor) -> torch.Tensor:
+    """The index of the lowest byte of m (0x80 flags) that is set; 4
+    when none is."""
+    return torch.where(m & 0x80 != 0, 0, torch.where(
+        m & 0x8000 != 0, 1, torch.where(m & 0x800000 != 0, 2,
+                                        torch.where(m != 0, 3, 4))))
+
+
+def policy_scan_tiled_plain(src: torch.Tensor, tile: int = LZ_TILE):
+    """K5's design in plain PyTorch (csrc/lzscan.cu), for the tests and
+    chip_smoke.py: per distance, each 4-byte word of src against the
+    word d bytes back in one xor, whose zero bytes give the word's
+    mismatch mask (0x80 a byte; forced below d and from n on); each
+    tile's first mismatch, the first mismatch after each tile (the
+    kernel's reverse look-back) and after each word inside its tile;
+    and one key a position, run * 128 + 127 - distance index, maximised
+    over the distances. Equals `policy_scan_plain`. tile: bytes, a
+    multiple of 4."""
+    n = src.shape[0]
+    dev = src.device
+    T = -(-n // tile)
+    wpt = tile // 4
+    # src behind 64 zero bytes (the kernel's staged bytes before a tile)
+    buf = torch.zeros(64 + 4 * (T * wpt) + 4, dtype=torch.int64,
+                      device=dev)
+    buf[64:64 + n] = src.to(torch.int64)
+    P = torch.arange(T * wpt, dtype=torch.int64, device=dev) * 4
+
+    def word(pos):            # little-endian; below -64 only where forced
+        q = (pos + 64).clamp(min=0)
+        return (buf[q] | (buf[q + 1] << 8) | (buf[q + 2] << 16)
+                | (buf[q + 3] << 24))
+
+    cur = word(P)
+    lim = n - P                              # bytes of the word below n
+    tail = torch.where(lim >= 4, 0, torch.where(
+        lim > 0, (_ALL << (8 * lim.clamp(0, 3))) & 0xFFFFFFFF, _ALL))
+    key = torch.zeros(T * wpt, 4, dtype=torch.int64, device=dev)
+    for dk, d in enumerate(DISTANCES):
+        if d >= n:
+            break
+        x = cur ^ word(P - d)
+        z = ~(((x & 0x7F7F7F7F) + 0x7F7F7F7F) | x | 0x7F7F7F7F) \
+            & 0xFFFFFFFF
+        below = (d - P).clamp(0, 4)
+        low = torch.where(below >= 4, _ALL,
+                          _ALL & ((1 << (8 * below)) - 1))
+        mm = (z ^ _ALL) | low | tail
+        first = torch.where(mm != 0, P + _lowest_byte(mm), n).clamp(max=n)
+        # the first mismatch after each word: inside its tile, else the
+        # first mismatch of a later tile
+        f = first.view(T, wpt)
+        suf = torch.cummin(f.flip(1), 1).values.flip(1)
+        after_in = torch.cat([suf[:, 1:], suf.new_full((T, 1), n)], 1)
+        tile_first = suf[:, 0]
+        tsuf = torch.cummin(tile_first.flip(0), 0).values.flip(0)
+        carry = torch.cat([tsuf[1:], tsuf.new_full((1,), n)])
+        after = torch.minimum(after_in, carry[:, None]).reshape(-1)
+        for j in range(4):
+            fj = _lowest_byte(mm >> (8 * j))
+            run = torch.where(fj < 4, fj, after - P - j)
+            torch.maximum(key[:, j], run * 128 + (127 - dk),
+                          out=key[:, j])
+    key = key.reshape(-1)[:n]
+    best_len = key >> 7
+    dist = torch.tensor(DISTANCES, dtype=torch.int64, device=dev)
+    best_d = torch.where(best_len > 0, dist[(127 - (key & 127)).clamp(
+        max=len(DISTANCES) - 1)], 0)
+    return best_len.to(torch.int32), best_d.to(torch.int32)
 
 
 def segment_scan_plain(meta_u8: torch.Tensor, lanes_i32: torch.Tensor):
@@ -133,23 +208,30 @@ def _segment_scan_cuda(meta_u8: torch.Tensor, lanes_i32: torch.Tensor):
     rows, k = lanes_i32.shape
     _check(lanes_i32, "lanes", torch.int32, (rows, k), dev)
     n_meta, n_planes = meta_u8.shape[0], 4 * rows * k
+    if max(n_meta, n_planes) >= MAX_SCAN_BYTES:
+        raise ValueError(f"K5 scans inputs below {MAX_SCAN_BYTES} bytes, "
+                         f"got {n_meta} and {n_planes}")
+    if meta_u8.data_ptr() % 4:
+        meta_u8 = meta_u8.clone()          # the kernel reads it by words
     lib = cuda_lib.lib()
-    with torch.cuda.device(dev):
+    with cuda_lib.on_device(dev):
         planes = torch.empty(n_planes, dtype=torch.uint8, device=dev)
         mbl = torch.empty(n_meta, dtype=torch.int32, device=dev)
         mbd = torch.empty_like(mbl)
         lbl = torch.empty(n_planes, dtype=torch.int32, device=dev)
         lbd = torch.empty_like(lbl)
-        bad = torch.zeros(1, dtype=torch.int32, device=dev)
-        scratch = _scratch(lib, max(n_meta, n_planes), dev)
+        ok = torch.empty((), dtype=torch.bool, device=dev)
+        scratch = torch.empty(
+            int(lib.ctpu_lzscan_scratch_bytes(n_meta, n_planes)),
+            dtype=torch.uint8, device=dev)
         rc = lib.ctpu_segment_scan(
             meta_u8.data_ptr(), n_meta, lanes_i32.data_ptr(), rows, k,
             planes.data_ptr(), mbl.data_ptr(), mbd.data_ptr(),
-            lbl.data_ptr(), lbd.data_ptr(), bad.data_ptr(),
+            lbl.data_ptr(), lbd.data_ptr(), ok.data_ptr(),
             scratch.data_ptr(), cuda_lib.stream_of(meta_u8))
         cuda_lib.check(rc, "ctpu_segment_scan")
         cuda_lib.count_launch("write.segment_scan", rows)
-    return planes, mbl, mbd, lbl, lbd, bad[0] == 0
+    return planes, mbl, mbd, lbl, lbd, ok
 
 
 def segment_scan(meta_u8: torch.Tensor, lanes_i32: torch.Tensor):

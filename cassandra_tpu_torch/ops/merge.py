@@ -16,7 +16,8 @@ Each has its plain PyTorch version beside it (`sort_perm_plain`,
 `reconcile_plain`), which the wrapper runs for tensors on the CPU and
 only then; for CUDA tensors it launches the kernel or raises.
 `sort_plan_plain` and `sort_perm_packed_plain` mirror K1's design for
-the tests and chip_smoke.py.
+the tests and chip_smoke.py, `reconcile_tiled_plain` K2's (tiles with
+carried fills).
 
 Operands follow the JAX package's layout: u32 lanes travel as the bit
 patterns of int32 tensors (torch has no unsigned 32-bit compares), and
@@ -400,12 +401,100 @@ def reconcile_plain(operands, perm) -> torch.Tensor:
             | (shadowed.to(torch.uint8) << 3))
 
 
+# csrc/reconcile.cu: sorted positions a tile of K2
+REC_TILE = 1024
+
+
+def _stamp(h: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """A (hi, lo) u32 pair (int32 bit patterns) as one int64 whose
+    signed order is the pair's unsigned order (hi biased by 2^31)."""
+    return ((_wide(h) - (1 << 31)) << 32) | _wide(l)
+
+
+_NO_STAMP = -(1 << 63)          # _stamp(0, 0)
+
+
+def _tile_fill(start: torch.Tensor, val: torch.Tensor, tile: int):
+    """The segmented forward-fill as K2 runs it: inside each tile the
+    value at the last start at or before each position; each tile's
+    aggregate (whether it holds a start, the value at its last); and
+    for a tile's positions before its first start, the carry: the
+    aggregate of the nearest earlier tile holding a start (the
+    look-back), _NO_STAMP when none does."""
+    n = start.shape[0]
+    T = -(-n // tile)
+    pad = T * tile - n
+    s = torch.cat([start, start.new_zeros(pad)]).view(T, tile)
+    v = torch.cat([val, val.new_zeros(pad)]).view(T, tile)
+    at = torch.arange(tile, device=start.device).expand(T, tile)
+    last = torch.cummax(torch.where(s, at, -1), 1).values
+    inside = v.gather(1, last.clamp(min=0))
+    tiles = torch.arange(T, device=start.device)
+    src = torch.cummax(torch.where(s.any(1), tiles, -1), 0).values
+    prev = torch.cat([src.new_full((1,), -1), src[:-1]])
+    carry = torch.where(prev >= 0, inside[prev.clamp(min=0), -1],
+                        _NO_STAMP)
+    return torch.where(last >= 0, inside, carry[:, None]).reshape(-1)[:n]
+
+
+def reconcile_tiled_plain(operands, perm, tile: int = REC_TILE,
+                          seg_len: int | None = None) -> torch.Tensor:
+    """K2's design in plain PyTorch (csrc/reconcile.cu), for the tests
+    and chip_smoke.py: each row gathered once, the boundaries against
+    the row before, the stamps as 64-bit values written at each start,
+    the three forward-fills in tiles of `tile` positions with per-tile
+    carries (`_tile_fill`), and the rules. Segments of seg_len rows
+    (default: the whole round, as K2's entry; the mesh step K8 runs
+    shards) each start a partition at their first row and never read
+    the row before it. Equals `reconcile_plain` over each segment."""
+    p = perm.to(torch.int64)
+    N = p.shape[0]
+    seg_len = N if seg_len is None else seg_len
+    lanes = operands["lanes"][p]
+    K = lanes.shape[1]
+    g = lambda k: operands[k][p]  # noqa: E731
+    ts = _stamp(g("ts_h"), g("ts_l"))
+    first = torch.arange(N, device=p.device) % seg_len == 0
+    diff = torch.ones_like(lanes, dtype=torch.bool)
+    diff[1:] = lanes[1:] != lanes[:-1]
+    part = first | diff[:, :4].any(1)
+    row = part | diff[:, 4:K - 3].any(1)
+    col_new = row | diff[:, K - 3]
+    cell = col_new | diff[:, K - 2:].any(1)
+    col = _wide(lanes[:, K - 3])
+    is_pd, is_rd = col == COL_PARTITION_DEL, col == COL_ROW_DEL
+    is_cd = g("cdel") == 1
+    none = torch.full_like(ts, _NO_STAMP)
+    pd = _tile_fill(part, torch.where(is_pd, ts, none), tile)
+    rd = _tile_fill(row, torch.where(is_rd, ts, none), tile)
+    cd = _tile_fill(col_new, torch.where(is_cd, ts, none), tile)
+    dl = torch.maximum(pd, rd)
+    cdl = torch.maximum(dl, cd)
+    shadowed = torch.where(
+        ~is_pd & ~is_rd & ~is_cd, ts <= cdl,
+        torch.where(is_rd, ts <= pd, torch.where(is_cd, ts <= dl,
+                                                 torch.zeros_like(is_cd))))
+    valid = g("valid") == 0
+    ldt = g("ldt")
+    expired = (g("expiring") == 1) & (ldt <= int(operands["now"]))
+    purged = ((g("death") == 1) | expired) \
+        & (ldt < int(operands["gc_before"])) \
+        & (ts < _stamp(g("purge_h"), g("purge_l")))
+    keep = cell & valid & ~shadowed & ~purged
+    same_ts = torch.zeros_like(first)
+    same_ts[1:] = ts[1:] == ts[:-1]
+    ambiguous = ~cell & same_ts & valid
+    return (keep.to(torch.uint8) | (ambiguous.to(torch.uint8) << 1)
+            | (expired.to(torch.uint8) << 2)
+            | (shadowed.to(torch.uint8) << 3))
+
+
 def _reconcile_cuda(operands, perm) -> torch.Tensor:
     N, K = _check_operands(operands)
     lanes = operands["lanes"]
     _check(perm, "perm", torch.int32, (N,), lanes.device)
     lib = cuda_lib.lib()
-    with torch.cuda.device(lanes.device):
+    with cuda_lib.on_device(lanes.device):
         packed = torch.empty(N, dtype=torch.uint8, device=lanes.device)
         scratch = torch.empty(lib.ctpu_reconcile_scratch_bytes(N),
                               dtype=torch.uint8, device=lanes.device)

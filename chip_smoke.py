@@ -15,11 +15,16 @@ result line:
               exact equality, warm times from CUDA events, at the main
               paths' planned shapes: K1 sort, K2 reconcile, K3 kept-first
               gather on a round of 491,520 cells padded to 524,288 with
-              K = 13 lanes (holding every K2 mask bit); K4 META serialize
-              and K5 LZ4 match scan on a 65,536-cell segment (K5 also on
+              K = 13 lanes (holding every K2 mask bit; K2 also against
+              the plain mirror of its tiles, and on make_edge_round's
+              round with a deletion at every tile edge); K4 META
+              serialize and K5 LZ4 match scan on a 65,536-cell segment
+              (K5 also against the mirror of its word compares, and on
               an unsorted copy, whose order check must fail; its LZ4
               blocks must equal the native encoder's; its D2H and the
-              host emission are timed on their own); K6 and K7, the plane
+              host emission are timed on their own; K2 and K5 each make
+              at most two device launches a call, counted by
+              torch.profiler); K6 and K7, the plane
               programs, on synthetic v3 / v2 rounds padded to 524,288 and
               786,432 (the K7 round holds partition, row and complex
               deletions, equal stamps and padding, and must give keep,
@@ -33,7 +38,8 @@ result line:
               decided (the select path): equal indices, scores within
               ANN_TOL; K8, the mesh step, on [4, 2^20]
               synthetic shards (a full and an empty shard, two full
-              shards of one hot cell side by side). K1, K6, K7 and K8
+              shards of one hot cell side by side; its reconcile also
+              against K2's mirror over equal segments). K1, K6, K7 and K8
               also print the round sort's passes run (of their key
               bytes, the passes launched; equal to sort_plan_plain's)
               and its device ms by step (torch.profiler); K1 and K8 the
@@ -268,6 +274,81 @@ def make_round(seed: int, n: int, N: int, K: int = LANES,
     }
 
 
+def make_edge_round(seed: int, n: int, N: int, tile: int = 1024,
+                    K: int = LANES) -> tuple:
+    """A round (make_round's layout, numpy) laid out in sorted order
+    and stored under a random permutation, with its segment starts
+    placed by hand for K2's tiles of `tile` positions: partitions that
+    span several tiles, and at each tile's last, first and second
+    position the start of a partition with a partition deletion, of a
+    row with a row deletion or of a column with a complex deletion, in
+    turn; equal-ts cells; padding after n (whole tiles of it when N - n
+    allows). Returns (operands, perm): perm[i] is the stored row of
+    sorted position i."""
+    rng = np.random.default_rng(seed)
+    r = rng.random(n)
+    # the level each sorted row starts: 0 partition, 1 row, 2 column,
+    # 3 cell, 4 none (it continues the cell before)
+    lvl = np.select([r < 1 / (3 * tile), r < 1 / 40, r < 1 / 4, r < 1 / 2],
+                    [0, 1, 2, 3], 4).astype(np.int8)
+    dele = (rng.random(n) < 0.3) & (lvl <= 2)     # a deletion of its level
+    edges = [e for t in range(1, n // tile + 1)
+             for e in (t * tile - 1, t * tile, t * tile + 1) if e < n]
+    for j, e in enumerate(edges):
+        lvl[e], dele[e] = j % 3, True
+    lvl[:1] = 0
+    part, row = np.cumsum(lvl == 0), np.cumsum(lvl <= 1)
+    colid, cell = np.cumsum(lvl <= 2), np.cumsum(lvl <= 3)
+    S = {"lanes": np.full((N, K), 0xFFFFFFFF, dtype=np.uint32)}
+    lanes = S["lanes"]
+    for k in range(4):
+        lanes[:n, k] = ((part.astype(np.uint64) * np.uint64(2654435761
+                                                            + 40503 * k))
+                        >> np.uint64(7)).astype(np.uint32)
+    lanes[:n, 4] = row
+    lanes[:n, 5:K - 3] = 0
+    # a column's lane: 0 under a partition deletion, 1 under a row
+    # deletion, else 8 or 9 by turns, so that neighbours differ
+    start = np.flatnonzero(lvl <= 2)
+    cval = 8 + colid[start] % 2
+    cval[dele[start] & (lvl[start] == 0)] = 0
+    cval[dele[start] & (lvl[start] == 1)] = 1
+    lanes[:n, K - 3] = cval[colid - 1]
+    lanes[:n, K - 2] = cell
+    lanes[:n, K - 1] = 0
+    ts = rng.integers(0, 1 << 20, n).astype(np.int64)
+    # a continued cell's row repeats the ts of the row before
+    dup = (lvl == 4) & (rng.random(n) < 0.4)
+    ts = ts[np.maximum.accumulate(np.where(dup, 0, np.arange(n)))]
+    with np.errstate(over="ignore"):
+        uts = ts.astype(np.uint64) ^ np.uint64(1 << 63)
+    now = 1_700_000_000
+
+    def col(vals, dtype=np.uint32, fill=0):
+        a = np.full(N, fill, dtype=dtype)
+        a[:n] = vals
+        return a
+
+    S.update({
+        "valid": col(0, fill=1),
+        "ts_h": col((uts >> np.uint64(32)).astype(np.uint32)),
+        "ts_l": col((uts & np.uint64(0xFFFFFFFF)).astype(np.uint32)),
+        "death": col(rng.random(n) < 0.1),
+        "cdel": col(dele & (lvl == 2)),
+        "ldt": col(now + rng.integers(-1000, 1000, n), np.int32),
+        "expiring": col(rng.random(n) < 0.2),
+        "purge_h": col(np.where(rng.random(n) < 0.5, 0x80000000, 0xFFFFFFFF)
+                       .astype(np.uint32), fill=0xFFFFFFFF),
+        "purge_l": col(rng.integers(0, 1 << 20, n), fill=0xFFFFFFFF)})
+    perm = rng.permutation(N).astype(np.int32)
+    ops = {}
+    for k, v in S.items():
+        ops[k] = np.empty_like(v)
+        ops[k][perm] = v
+    ops["now"], ops["gc_before"] = np.int32(now), np.int32(now - 500)
+    return ops, perm
+
+
 def make_segment(seed: int, n: int) -> tuple:
     """One full segment's columns with the extreme timestamps of
     tests/test_device_resident.py (i64 min and max, -1, 0)."""
@@ -481,17 +562,18 @@ def packed_sort_key(ops: dict) -> torch.Tensor | None:
 
 
 SORT_STEPS = ("plan_hist", "plan_bases", "plan_table", "split_pack",
-              "round_pass", "scan_tiles", "add_back", "rec_bounds",
-              "rec_final", "shard_stats", "sum_stats", "fast_tail",
+              "round_pass", "scan_tiles", "add_back", "rec_tiles",
+              "lz_segment", "shard_stats", "sum_stats", "fast_tail",
               "v2_bounds", "v2_final", "Memcpy", "Memset")
 
 
-def sort_breakdown(fn) -> dict | None:
-    """Device ms of one call of fn (a round sort, a plane program or the
-    mesh step) by kernel, from torch.profiler: {step: [launches, ms]}
-    over SORT_STEPS (K2's kernels are rec_*, K6's tail fast_tail, K7's
-    v2_*; the scans serve the sort's split, K2 and K7); None when the
-    profiler saw no device time or missed the plan."""
+def sort_breakdown(fn, first: str = "plan_hist") -> dict | None:
+    """Device ms of one call of fn (a round sort, a plane program, the
+    mesh step, K2 or K5) by kernel, from torch.profiler: {step:
+    [launches, ms]} over SORT_STEPS (K2's kernel is rec_tiles, K5's
+    lz_segment, K6's tail fast_tail, K7's v2_*; the scans serve the
+    sort's split, K3 and K7); None when the profiler saw no device time
+    or missed the step `first`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -508,7 +590,13 @@ def sort_breakdown(fn) -> dict | None:
         c = out.setdefault(step, [0, 0.0])
         c[0] += e.count
         c[1] += e.self_device_time_total / 1e3
-    return out if "plan_hist" in out else None
+    return out if first in out else None
+
+
+def launches_per_call(steps: dict | None) -> int | None:
+    """Device launches (kernels and memsets) of one call, from
+    sort_breakdown; None when not measured."""
+    return None if steps is None else sum(c for c, _ms in steps.values())
 
 
 def _sorted(name: str, fn) -> tuple:
@@ -570,13 +658,27 @@ def check_round(seed: int, N: int, res: dict) -> None:
            steps=sort_breakdown(lambda: dm.device_sort_perm(ops)),
            **work("sort_perm", N, K))
 
-    # K2 reconcile
+    # K2 reconcile: against the plain version and the mirror of its
+    # tiles, here and on a round with a deletion at every tile's edges
     packed = dm.reconcile_kernel(ops, perm)
     packed_p = dm.reconcile_plain(ops, perm)
     torch.cuda.synchronize()
-    err = max_abs_err(packed, packed_p)
+    err = max(max_abs_err(packed, packed_p),
+              max_abs_err(dm.reconcile_tiled_plain(ops, perm), packed_p))
+    edge_np, edge_perm = make_edge_round(seed + N, n, N)
+    edge = dm.operands_to_device(edge_np, torch.device(DEVICE))
+    edge_perm = torch.from_numpy(edge_perm).to(DEVICE)
+    edge_p = dm.reconcile_plain(edge, edge_perm)
+    err = max(err, max_abs_err(dm.reconcile_kernel(edge, edge_perm), edge_p),
+              max_abs_err(dm.reconcile_tiled_plain(edge, edge_perm), edge_p))
+    del edge
     need(err == 0, f"K2 reconcile at N={N}: kernel != plain "
                    f"(max abs err {err})")
+    k2_steps = sort_breakdown(lambda: dm.reconcile_kernel(ops, perm),
+                              "rec_tiles")
+    per_call = launches_per_call(k2_steps)
+    need(per_call is None or per_call <= 2,
+         f"K2 at N={N}: {per_call} device launches a call, want at most 2")
     bits = packed[:n].to(torch.int64)     # live cells sort before padding
     masks = {m: int(((bits >> b) & 1).sum()) for b, m in
              enumerate(("keep", "ambiguous", "expired", "shadowed"))}
@@ -588,7 +690,7 @@ def check_round(seed: int, N: int, res: dict) -> None:
     _entry(res, "K2", "merge.reconcile", N, err=err, masks=masks,
            ms=cuda_ms(lambda: dm.reconcile_kernel(ops, perm)),
            plain_ms=cuda_ms(lambda: dm.reconcile_plain(ops, perm), reps=3),
-           library_ms=None, **work("reconcile", N, K))
+           library_ms=None, steps=k2_steps, **work("reconcile", N, K))
 
     # K3 kept-first compaction + gather
     counts, perm_out, cols = dw.compact_gather(ops, perm, packed)
@@ -671,10 +773,20 @@ def check_scan(seed: int, seg_n: int, res: dict) -> None:
                                                           ref[:5])))
         need(bool(out[5]) is ok and bool(ref[5]) is ok,
              f"K5 order check: want order_ok={ok}")
-    need(err == 0, f"K5 segment_scan at n={seg_n}: kernel != plain "
-                   f"(max abs err {err})")
     lanes = torch.from_numpy(lanes_np.view(np.int32)).to(dev)
     out = dc.segment_scan(meta, lanes)
+    # the mirror of the kernel's tiles and word compares
+    for src, bl, bd in ((meta, out[1], out[2]), (out[0], out[3], out[4])):
+        tl, td = dc.policy_scan_tiled_plain(src)
+        err = max(err, max_abs_err(bl, tl), max_abs_err(bd, td))
+    need(err == 0, f"K5 segment_scan at n={seg_n}: kernel != plain "
+                   f"(max abs err {err})")
+    k5_steps = sort_breakdown(lambda: dc.segment_scan(meta, lanes),
+                              "lz_segment")
+    per_call = launches_per_call(k5_steps)
+    need(per_call is None or per_call <= 2,
+         f"K5 at n={seg_n}: {per_call} device launches a call, want at "
+         "most 2")
     pulled = lambda: _pull([out[5].reshape(1), *out[:5]])  # noqa: E731
     _ok, planes, mbl, mbd, lbl, lbd = pulled()
     longest = int(lbl.max())
@@ -693,7 +805,7 @@ def check_scan(seed: int, seg_n: int, res: dict) -> None:
            plain_ms=cuda_ms(lambda: dc.segment_scan_plain(meta, lanes),
                             reps=2, warm=1),
            library_ms=None, d2h_ms=host_ms(pulled), emit_ms=emit_ms,
-           longest_run=longest,
+           longest_run=longest, steps=k5_steps,
            sizes_lz4=[len(b) for b in blocks],
            **work("segment_scan", meta_np.size, planes.size,
                   len(dc.DISTANCES)))
@@ -982,6 +1094,13 @@ def check_mesh(seed: int, size: tuple, res: dict) -> None:
     torch.cuda.synchronize()
     err = max(max_abs_err(perm, perm_p), max_abs_err(packed, packed_p),
               max_abs_err(stats, stats_p))
+    flat = {k: (v.reshape(S * N, -1) if k == "lanes" else v.reshape(-1))
+            if torch.is_tensor(v) else v for k, v in ops.items()}
+    gperm = (perm + torch.arange(S, device=perm.device,
+                                 dtype=perm.dtype)[:, None] * N).reshape(-1)
+    err = max(err, max_abs_err(
+        dm.reconcile_tiled_plain(flat, gperm, seg_len=N), packed.reshape(-1)))
+    del flat, gperm
     need(err == 0, f"K8 mesh step at {size}: kernel != plain "
                    f"(max abs err {err})")
     kept = int((packed & 1).sum())
@@ -1054,6 +1173,12 @@ def print_checks(res: dict, sizes: dict) -> None:
                       "built " + ("n/a" if lk is None else f"{lk:.4f} ms")
                       + "; device [launches, ms] by step: "
                       + ("not measured" if r["steps"] is None else
+                         json.dumps({k: [c, round(t, 4)] for k, (c, t)
+                                     in sorted(r["steps"].items())})),
+                      flush=True)
+            elif kid in ("K2", "K5"):
+                print(f"  {kid} device [launches, ms] by step, one call: "
+                      + ("not measured" if r.get("steps") is None else
                          json.dumps({k: [c, round(t, 4)] for k, (c, t)
                                      in sorted(r["steps"].items())})),
                       flush=True)

@@ -17,10 +17,13 @@ checkout's own code:
            graph_ms without the host's issue cost), K10 on 1,000,000 x
            128 (every similarity, k = 10 and 100), K6 and K7 on the
            synthetic plane rounds (2^19 and 786,432), K1-K3 on the
-           synthetic rounds and K8 on the synthetic mesh steps. One
-           JSON line per (turn, kernel, size): ms, plain ms, library ms
-           and, where the checkout reports them, the passes run or
-           K10's cases;
+           synthetic rounds (2^19 to 2^24; `--kernels K2` picks them
+           too), K8 on the synthetic mesh steps, and K4 and K5 on one
+           65,536-cell segment. One JSON line per (turn, kernel, size):
+           ms, plain ms, library ms and, where the checkout reports
+           them, the passes run, K10's cases or the device launches
+           and ms by kernel of one call (`steps`; K2 and K5 from this
+           tree on);
   issue    the host's cost of issuing K9's mask at 65,536 keys:
            microseconds a call over TIMED_CALLS calls (the host's mean,
            its least of five windows, and the card's mean from CUDA
@@ -68,7 +71,7 @@ TIMED_CALLS = 10_000
 READ_PARTITIONS = 200_000           # the small read table: x 10 rows
 MESH_SIZES = ((2, 8192), (4, 4096), (4, 1 << 20), (4, 1 << 22), (1, 1 << 24))
 KEYS = ("ms", "plain_ms", "library_ms", "library_with_key_ms", "passes",
-        "graph_ms", "library_graph_ms", "cases")
+        "graph_ms", "library_graph_ms", "cases", "steps")
 SECTIONS = ("kernels", "issue", "read", "empty", "submit")
 EMPTY_SIZES = (1 << 19, 1 << 24)
 SUBMIT_RUNS, SUBMIT_RUN_CELLS = 4, 122_880
@@ -340,11 +343,15 @@ def turn(directory: str, label: str, seed: int, sections: tuple,
         res: dict = {}
         sizes = {"K1": set(ROUND_SIZES), "K8": set(MESH_SIZES),
                  "K6": set(cs.PLANE_PADS), "K9": set(SCAN_SIZES),
-                 "K10": {cs.ANN_ROWS}}
+                 "K10": {cs.ANN_ROWS}, "K4": {cs.SEGMENT},
+                 "K5": {cs.SEGMENT}}
+        if kernels is not None and "K2" in kernels:
+            sizes["K2"] = sizes["K1"]
         sizes = {kid: v for kid, v in sizes.items()
                  if kernels is None or kid in kernels}
         cs.phase_kernels(seed, sizes, res)
-        for kid in ("K1", "K2", "K3", "K6", "K7", "K8", "K9", "K10"):
+        for kid in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9",
+                    "K10"):
             for size, r in sorted(res.get(kid, {}).get("shapes", {}).items()):
                 print(json.dumps({"turn": label, "kernel": kid,
                                   "size": size, **{k: r[k] for k in KEYS
@@ -373,8 +380,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated, of " + ", ".join(SECTIONS))
     ap.add_argument("--kernels", help="comma-separated kernels of the "
-                    "kernels section (K1 checks K1-K3, K6 K6 and K7; "
-                    "default: K1, K6, K8, K9, K10)")
+                    "kernels section (K1 or K2 checks K1-K3, K6 K6 and "
+                    "K7; default: K1, K4, K5, K6, K8, K9, K10)")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.turn:

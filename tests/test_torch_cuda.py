@@ -53,6 +53,57 @@ def test_round_kernels_match_plain(n, N):
         assert after[k].get(N, 0) == before[k].get(N, 0) + 1, k
 
 
+# (live rows, padded rows): K2's tiles are 1,024 positions; a length
+# that is no multiple of 4, a round of two long partitions, and whole
+# tiles of padding
+RECONCILE_CASES = [(3000, 4099, "edges"), (60_000, 65_536 + 2051, "edges"),
+                   (3000, 8192, "edges"), (40_000, 65_536, "two-partitions")]
+
+
+@pytest.mark.parametrize("n,N,kind", RECONCILE_CASES,
+                         ids=[f"{c[2]}-{c[0]}of{c[1]}"
+                              for c in RECONCILE_CASES])
+def test_reconcile_tiles_match_plain(n, N, kind):
+    """K2 against its plain version and the mirror of its tiles, on
+    rounds whose partitions span its tiles: a partition, row or complex
+    deletion at every tile's edge (make_edge_round), or a sorted round
+    of two partitions; one launch counted a call."""
+    from chip_smoke import make_edge_round
+    dev = _card()
+    if kind == "edges":
+        ops_np, perm_np = make_edge_round(n, n, N)
+        ops = dm.operands_to_device(ops_np, dev)
+        perm = torch.from_numpy(perm_np).to(dev)
+    else:
+        ops = dm.operands_to_device(make_round(n, n, N, partitions=2), dev)
+        perm = dm.device_sort_perm(ops)
+    before = cuda_lib.launches()["merge.reconcile"]
+    packed = dm.reconcile_kernel(ops, perm)
+    assert cuda_lib.launches()["merge.reconcile"] == before + 1
+    plain = dm.reconcile_plain(ops, perm)
+    assert torch.equal(packed, plain)
+    assert torch.equal(dm.reconcile_tiled_plain(ops, perm), plain)
+    assert int((packed & 8).count_nonzero()) > 0
+
+
+@pytest.mark.parametrize("S,N", [(4, 3000), (3, 1024), (2, 4096)])
+def test_mesh_reconcile_matches_the_tiled_mirror(S, N):
+    """K8's reconcile (reconcile_seg over equal segments) against the
+    mirror of K2's tiles with seg_len = N, at shard lengths that are
+    and are not multiples of its tile: full, empty and hot shards."""
+    from chip_smoke import make_mesh_operands
+    from cassandra_tpu_torch.parallel import mesh as pm
+    dev = _card()
+    ops = dm.operands_to_device(make_mesh_operands(S * N, S, N), dev)
+    perm, packed, _stats = pm.sharded_step(ops)
+    flat = {k: (v.reshape(S * N, -1) if k == "lanes" else v.reshape(-1))
+            if torch.is_tensor(v) else v for k, v in ops.items()}
+    base = torch.arange(S, device=dev, dtype=perm.dtype)[:, None] * N
+    mirror = dm.reconcile_tiled_plain(flat, (perm + base).reshape(-1),
+                                      seg_len=N)
+    assert torch.equal(packed.reshape(-1), mirror)
+
+
 # (case, live rows, padded rows, lanes) at the edges of the pass's tile
 # (4,096 rows) and of half a tile: one row, an edge less one and plus
 # one, 2^16 + 1, an odd pass count (21) and no pass at all (equal keys,
@@ -154,6 +205,40 @@ def test_segment_scan_matches_plain():
             assert torch.equal(a, b)
         assert bool(out[5]) is ok
     assert cuda_lib.launches()["write.segment_scan"] == before + 2
+
+
+@pytest.mark.parametrize("rows,meta_len,kind", [
+    (4097, 25 * 4097 + 3, "sorted"), (1, 30, "sorted"),
+    (9000, 25 * 9000 + 1, "constant"), (2, 8195, "unaligned")])
+def test_segment_scan_edges_match_plain(rows, meta_len, kind):
+    """K5 at a META length that is no multiple of 4, at one lane row,
+    on constant planes (every lane row equal: runs across all tiles)
+    and on a META block that does not start on a 4-byte boundary,
+    against its plain version and the mirror of its tiles; one launch
+    counted a call."""
+    from chip_smoke import make_lanes
+    from cassandra_tpu_torch.ops import device_compress as dc
+    dev = _card()
+    rng = np.random.default_rng(rows)
+    meta = torch.from_numpy(rng.integers(0, 3, meta_len + 1,
+                                         dtype=np.uint8)).to(dev)
+    meta = meta[1:] if kind == "unaligned" else meta[:-1]
+    lanes = make_lanes(rows, rows)
+    if kind == "constant":
+        lanes[:] = lanes[0]
+    t = torch.from_numpy(lanes.view(np.int32)).to(dev)
+    before = cuda_lib.launches()["write.segment_scan"]
+    out = dc.segment_scan(meta, t)
+    assert cuda_lib.launches()["write.segment_scan"] == before + 1
+    ref = dc.segment_scan_plain(meta, t)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert bool(out[5])
+    for src, bl, bd in ((meta, out[1], out[2]), (out[0], out[3], out[4])):
+        tl, td = dc.policy_scan_tiled_plain(src)
+        assert torch.equal(bl, tl) and torch.equal(bd, td)
+    if kind == "constant":                 # a run spans a whole plane
+        assert int(out[3].max()) >= rows - 1 > dc.LZ_TILE
 
 
 @pytest.mark.parametrize("n", [70_000, 300_001])

@@ -117,6 +117,45 @@ def test_policy_scan_short_and_constant(n):
     assert bd.numpy().tolist() == [0] + [1] * (n - 1)
 
 
+def _pieces(seed: int) -> np.ndarray:
+    """For every distance d = 1..64 a stretch of period d (a random
+    head of d bytes repeated), between random bytes; then a block
+    repeated 128 and 1,024 bytes on (two long distances); then a
+    constant run to the end."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in range(1, 65):
+        out.append(rng.integers(0, 256, 3 + d % 5, dtype=np.uint8))
+        out.append(np.tile(rng.integers(0, 4, d, dtype=np.uint8),
+                           4 + 40 // d)[:3 * d + 7])
+    blk = rng.integers(0, 256, 128, dtype=np.uint8)
+    out += [blk, blk, rng.integers(0, 256, 768, dtype=np.uint8), blk,
+            blk[:50], np.full(301, 9, dtype=np.uint8)]
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("tile", [16, 64, tdc.LZ_TILE])
+def test_tiled_scan_matches_numpy(tile):
+    """K5's word-wide design (policy_scan_tiled_plain) against the
+    numpy reference: runs of every short distance across tile edges,
+    runs to the end of the input, long distances, and inputs shorter
+    than a distance, whatever the length's remainder by 4."""
+    src = _pieces(tile)
+    cases = [src, src[:-1], src[:-2], src[:-3]]
+    rng = np.random.default_rng(tile)
+    for n in (1, 2, 3, 4, 5, 63, 64, 65, 66, 127, 128, 129, 131):
+        cases += [rng.integers(0, 2, n, dtype=np.uint8),
+                  np.full(n, 5, dtype=np.uint8)]
+    for c in cases:
+        bl, bd = tdc.policy_scan_tiled_plain(_t(c), tile)
+        rbl, rbd = jdc.match_scan_np(c)
+        assert np.array_equal(bl.numpy(), rbl), c.size
+        assert np.array_equal(bd.numpy(), rbd), c.size
+    bl, bd = tdc.policy_scan_tiled_plain(_t(src), tile)
+    assert set(bd.numpy().tolist()) >= set(range(1, 65)) | {128}
+    assert int(bl[-300]) == 300          # the constant run to the end
+
+
 def test_tie_break_smallest_distance():
     src = np.frombuffer(b"ab" * 64, dtype=np.uint8)
     bl, bd = tdc.policy_scan_plain(_t(src))
