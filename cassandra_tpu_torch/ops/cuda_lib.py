@@ -55,6 +55,9 @@ PASSES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PENDING_CAP = 1024
 _PENDING: dict[str, list] = {k: [] for k in KERNELS}
 _LAST_SORT: dict[str, tuple] = {}
+# bumped by reset_launches: a fold that took its sorts before a reset
+# and reads them after it adds nothing to the new counts
+_EPOCH = [0]
 _count_lock = threading.Lock()
 
 _lock = threading.Lock()
@@ -89,6 +92,7 @@ def _fold(wait: bool) -> None:
     (all of them, waiting, when `wait`; else the oldest beyond
     PENDING_CAP are waited for) into PASSES."""
     with _count_lock:
+        epoch = _EPOCH[0]
         todo = {}
         for name, recs in _PENDING.items():
             n = len(recs) if wait else max(0, len(recs) - PENDING_CAP)
@@ -100,6 +104,8 @@ def _fold(wait: bool) -> None:
     done = {name: sum(_read(rec) for rec in recs)
             for name, recs in todo.items()}
     with _count_lock:
+        if _EPOCH[0] != epoch:
+            return
         for name, p in done.items():
             PASSES[name] += p
 
@@ -112,6 +118,7 @@ def _read(rec) -> int:
 
 def reset_launches() -> None:
     with _count_lock:
+        _EPOCH[0] += 1
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             PASSES[k] = 0

@@ -7,7 +7,7 @@ calls; a remote admin protocol can wrap these functions); `python -m
 cassandra_tpu_torch.tools.nodetool <cmd> --data <dir> [--device cpu]`
 drives a local engine (its kernels on `cuda` unless `--device` says
 otherwise). Commands that need a module the port does not have yet
-(the cluster layer, copyutil, sstableloader, the admin protocol) raise
+(the cluster layer, sstableloader, the admin protocol) raise
 ImportError at that module's import.
 
 Implemented commands: status, info, flush, compact, compactionstats,

@@ -26,9 +26,8 @@ result line:
               blocks must equal the native encoder's; its D2H and the
               host emission are timed on their own; K2, K4 and K5 each
               make at most two device launches a call and K3 at most
-              three, counted by torch.profiler, which must see them
-              here (in phase 7 an unseen count is printed as not
-              measured), and K3 and K4 are also
+              three, counted as the nodes of a CUDA graph captured from
+              one call, and K3 and K4 are also
               timed in a CUDA graph, without the host's issue cost);
               K6 and K7, the plane
               programs, on synthetic v3 / v2 rounds padded to 524,288 and
@@ -108,6 +107,39 @@ result line:
               the per-device path's perm and keep. The counters are
               reset before the cases and read after; then K8 is timed
               on each case's own operands.
+  8. tools    two processes of their own (chip_smoke.py --tools-part),
+              started after phase 3 and run beside phases 4-6 (the
+              tools are host-bound Python), then waited for before
+              phase 7, which covers their sizes; their output is printed
+              after phase 6. The single-node tools on card engines, each
+              part in a directory of its own. stress: (a) stress.write
+              of STRESS_ROWS_RUN rows into stress.standard1 (a key and
+              four 34 B blobs; cassandra-stress's `write n=1000000`, cut
+              to 200,000, printed as `reduced`) with a flush threshold
+              giving at least 4 sstables, stress.read of a tenth as many
+              keys (every read must hit), then the table's major
+              compaction, compact_leg on a copy through
+              CompactionTask(engine="device") with device compress off
+              (K1-K4 must launch, K5 not) beside compact_leg on another
+              copy with the native engine: sha256-equal over every
+              component; (b) cqlsh.repl's COPY TO a CSV from an engine
+              reopened over the device leg's output, COPY FROM it into a
+              fresh card engine, flush, COPY TO again: byte-equal, n
+              rows; (c) sstabletools over that output: verify passes,
+              metadata's cells sum to the cells read back, the dump of a
+              partition equals its SELECT. harry: (d) HARRY_OPS ops of
+              OpGenerator(seed, 2,048 partitions, 64 rows) with TTLs on
+              a virtual clock and every kind of deletion but range
+              deletions (a round holding a range tombstone's bound
+              merges on the host, as in the JAX package), through a
+              Session, a flush every HARRY_FLUSH_EVERY ops; every
+              partition equal to the model, then the major compaction in
+              the default configuration (K1-K5 must launch) beside a
+              native one, sha256-equal, then every partition again on
+              the device leg's output. Launch counters are reset just
+              before each device compaction and read just after (each
+              process has its own); each part prints its wall seconds
+              and the compactions their launches by kernel.
   7. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
               its partition's end pads to 2^20; the scan mask's runs of
@@ -159,9 +191,10 @@ STCS_CELLS_PER_RUN = 2_500_000       # BASELINE.json config 1: n = 10M
 STCS_PARTITIONS = 4096
 VALUE_BYTES = 64
 # the default-configuration leg (K5) runs on its own cut input: its
-# host payload scans take seconds per segment (PERF.md section 5); an
-# eighth since the mesh phase joined, to keep the smoke under 600 s
-COMPRESS_LEG_CUT = 8
+# host payload scans take seconds per segment (PERF.md section 5); a
+# thirty-second since the tools phase joined, to keep the smoke under
+# 600 s (printed as `reduced`)
+COMPRESS_LEG_CUT = 32
 # the read cells: scan.events (10 rows per partition) and emb
 # the engine's mesh lanes (`compaction_mesh_devices`) in the read phase's
 # first three legs: with none (the default, the fourth leg), Phase B
@@ -648,7 +681,11 @@ def sort_breakdown(fn, first: str = "plan_hist") -> dict | None:
     cmp_partition and cmp_gather, K4's meta_tiles, K5's lz_segment,
     K6's tail fast_tail, K7's v2_*; the scans serve the sort's split and
     K7); None when the profiler saw no device time or missed the step
-    `first`."""
+    `first`. On the H100 machines the profiler's device timestamps stop
+    agreeing with the host's clock some tens of seconds into a process,
+    and it then drops most windows' device events (PERF.md section 7),
+    so a step breakdown is often not measured; `graph_launches` counts
+    launches without it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -668,26 +705,50 @@ def sort_breakdown(fn, first: str = "plan_hist") -> dict | None:
     return out if first in out else None
 
 
-def launches_per_call(steps: dict | None) -> int | None:
-    """Device launches (kernels and memsets) of one call, from
-    sort_breakdown; None when not measured."""
-    return None if steps is None else sum(c for c, _ms in steps.values())
+# cuda.h CUgraphNodeType: kernel, memcpy, memset
+GRAPH_DEVICE_NODES = (0, 1, 2)
 
 
-def launch_limit(what: str, steps: dict | None, most: int,
-                 measured: bool) -> None:
-    """Hold one call's device launches (sort_breakdown's steps) to at
-    most `most`. Where the profiler saw no device time, fail when
-    `measured` asks for the measurement, else say it was not made."""
-    per_call = launches_per_call(steps)
-    if per_call is None:
-        need(not measured, f"{what}: torch.profiler saw no device time, "
-                           "so its launches a call were not measured")
-        print(f"  {what}: launches a call not measured (the limit of "
-              f"{most} not checked)", flush=True)
-        return
+def graph_launches(fn) -> int:
+    """Device launches (kernels, memsets and copies) of one call of fn,
+    counted as the nodes of a CUDA graph captured from the call. fn must
+    not wait for the device (the wrappers' `__wrapped__`, without the
+    profiling hook's events)."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    need(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+         "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    need(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+         "cuGraphGetNodes failed")
+    count = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        need(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kind)) == 0,
+             "cuGraphNodeGetType failed")
+        count += kind.value in GRAPH_DEVICE_NODES
+    g.reset()
+    return count
+
+
+def launch_limit(what: str, fn, most: int) -> int:
+    """Hold one call of fn to at most `most` device launches
+    (graph_launches); returns the count."""
+    per_call = graph_launches(fn)
     need(per_call <= most, f"{what}: {per_call} device launches a call, "
                            f"want at most {most}")
+    return per_call
 
 
 def _sorted(name: str, fn) -> tuple:
@@ -709,10 +770,10 @@ def _entry(res: dict, kid: str, name: str, size: int, **kw) -> None:
     res.setdefault(kid, {"name": name, "shapes": {}})["shapes"][size] = kw
 
 
-def check_round(seed: int, N: int, res: dict, measured: bool) -> None:
+def check_round(seed: int, N: int, res: dict) -> None:
     """K1-K3 against their plain versions on one synthetic round padded
-    to N cells; exact equality; warm times. measured: fail where the
-    profiler cannot count K2's and K3's launches (`launch_limit`)."""
+    to N cells; exact equality; warm times; K2 and K3 held to their
+    device launches a call (`launch_limit`)."""
     from cassandra_tpu_torch.ops import device_write as dw
     from cassandra_tpu_torch.ops import merge as dm
 
@@ -768,7 +829,8 @@ def check_round(seed: int, N: int, res: dict, measured: bool) -> None:
                    f"(max abs err {err})")
     k2_steps = sort_breakdown(lambda: dm.reconcile_kernel(ops, perm),
                               "rec_tiles")
-    launch_limit(f"K2 at N={N}", k2_steps, 2, measured)
+    k2_launches = launch_limit(
+        f"K2 at N={N}", lambda: dm.reconcile_kernel.__wrapped__(ops, perm), 2)
     bits = packed[:n].to(torch.int64)     # live cells sort before padding
     masks = {m: int(((bits >> b) & 1).sum()) for b, m in
              enumerate(("keep", "ambiguous", "expired", "shadowed"))}
@@ -780,7 +842,8 @@ def check_round(seed: int, N: int, res: dict, measured: bool) -> None:
     _entry(res, "K2", "merge.reconcile", N, err=err, masks=masks,
            ms=cuda_ms(lambda: dm.reconcile_kernel(ops, perm)),
            plain_ms=cuda_ms(lambda: dm.reconcile_plain(ops, perm), reps=3),
-           library_ms=None, steps=k2_steps, **work("reconcile", N, K))
+           library_ms=None, steps=k2_steps, launches_a_call=k2_launches,
+           **work("reconcile", N, K))
 
     # K3 kept-first compaction + gather: against the plain version and
     # the mirror of its tiles
@@ -796,7 +859,9 @@ def check_round(seed: int, N: int, res: dict, measured: bool) -> None:
                    f"(max abs err {err})")
     k3_steps = sort_breakdown(lambda: dw.compact_gather(ops, perm, packed),
                               "cmp_partition")
-    launch_limit(f"K3 at N={N}", k3_steps, 3, measured)
+    raw = dw.compact_gather.__wrapped__
+    k3_launches = launch_limit(f"K3 at N={N}",
+                               lambda: raw(ops, perm, packed), 3)
 
     def library_k3():
         keep = (packed & 1) != 0
@@ -805,7 +870,6 @@ def check_round(seed: int, N: int, res: dict, measured: bool) -> None:
         p = perm.index_select(0, order).to(torch.int64)
         return [ops[k].index_select(0, p) for k in dw.RESIDENT_COLS]
 
-    raw = dw.compact_gather.__wrapped__
     _entry(res, "K3", "write.compact_gather", N, err=err,
            ms=cuda_ms(lambda: dw.compact_gather(ops, perm, packed)),
            graph_ms=graph_ms(lambda: raw(ops, perm, packed),
@@ -813,13 +877,14 @@ def check_round(seed: int, N: int, res: dict, measured: bool) -> None:
            plain_ms=cuda_ms(
                lambda: dw.compact_gather_plain(ops, perm, packed), reps=3),
            library_ms=cuda_ms(library_k3, reps=3), steps=k3_steps,
+           launches_a_call=k3_launches,
            **work("compact_gather", N, K))
 
 
-def check_segment(seed: int, seg_n: int, res: dict, measured: bool) -> None:
+def check_segment(seed: int, seg_n: int, res: dict) -> None:
     """K4 against its plain version and the host build_meta_block on one
-    segment of seg_n cells with extreme timestamps; exact equality.
-    measured: as check_round's."""
+    segment of seg_n cells with extreme timestamps; exact equality; at
+    most two device launches a call."""
     from cassandra_tpu_torch.ops import device_write as dw
     from cassandra_tpu_torch.storage.cellbatch import DEATH_FLAGS
     from cassandra_tpu_torch.storage.sstable.writer import build_meta_block
@@ -846,21 +911,22 @@ def check_segment(seed: int, seg_n: int, res: dict, measured: bool) -> None:
          f"K4 meta_block: stats {stats} disagree with the host")
     k4_steps = sort_breakdown(lambda: dw.meta_block_kernel(*seg),
                               "meta_tiles")
-    launch_limit(f"K4 at n={seg_n}", k4_steps, 2, measured)
     raw = dw.meta_block_buffer.__wrapped__
+    k4_launches = launch_limit(f"K4 at n={seg_n}", lambda: raw(*seg), 2)
     _entry(res, "K4", "write.meta_block", seg_n, err=err,
            ms=cuda_ms(lambda: dw.meta_block_buffer(*seg), reps=50),
            graph_ms=graph_ms(lambda: raw(*seg)),
            plain_ms=cuda_ms(lambda: dw.meta_block_plain(*seg), reps=3),
-           library_ms=None, steps=k4_steps, **work("meta_block", seg_n))
+           library_ms=None, steps=k4_steps, launches_a_call=k4_launches,
+           **work("meta_block", seg_n))
 
 
-def check_scan(seed: int, seg_n: int, res: dict, measured: bool) -> None:
+def check_scan(seed: int, seg_n: int, res: dict) -> None:
     """K5 against its plain version on one full segment (make_segment's
     META block, a sorted stcs-like lane slice) and on an unsorted copy,
     exact equality; the emitted LZ4 blocks against the native encoder;
-    the D2H of the results and the host emission timed on their own.
-    measured: as check_round's."""
+    the D2H of the results and the host emission timed on their own; at
+    most two device launches a call."""
     from cassandra_tpu_torch.ops import device_compress as dc
     from cassandra_tpu_torch.ops.codec import get_compressor
     from cassandra_tpu_torch.ops.device_write import _pull
@@ -891,7 +957,9 @@ def check_scan(seed: int, seg_n: int, res: dict, measured: bool) -> None:
                    f"(max abs err {err})")
     k5_steps = sort_breakdown(lambda: dc.segment_scan(meta, lanes),
                               "lz_segment")
-    launch_limit(f"K5 at n={seg_n}", k5_steps, 2, measured)
+    k5_launches = launch_limit(
+        f"K5 at n={seg_n}",
+        lambda: dc.segment_scan.__wrapped__(meta, lanes), 2)
     pulled = lambda: _pull([out[5].reshape(1), *out[:5]])  # noqa: E731
     _ok, planes, mbl, mbd, lbl, lbd = pulled()
     longest = int(lbl.max())
@@ -911,6 +979,7 @@ def check_scan(seed: int, seg_n: int, res: dict, measured: bool) -> None:
                             reps=2, warm=1),
            library_ms=None, d2h_ms=host_ms(pulled), emit_ms=emit_ms,
            longest_run=longest, steps=k5_steps,
+           launches_a_call=k5_launches,
            sizes_lz4=[len(b) for b in blocks],
            **work("segment_scan", meta_np.size, planes.size,
                   len(dc.DISTANCES)))
@@ -1282,7 +1351,9 @@ def print_checks(res: dict, sizes: dict) -> None:
                                      in sorted(r["steps"].items())})),
                       flush=True)
             elif kid in ("K2", "K3", "K4", "K5"):
-                print(f"  {kid} device [launches, ms] by step, one call: "
+                print(f"  {kid} device launches a call (CUDA graph nodes) "
+                      f"{r['launches_a_call']}; [launches, ms] by step "
+                      "(torch.profiler): "
                       + ("not measured" if r.get("steps") is None else
                          json.dumps({k: [c, round(t, 4)] for k, (c, t)
                                      in sorted(r["steps"].items())})),
@@ -1318,22 +1389,19 @@ def print_checks(res: dict, sizes: dict) -> None:
                           f"{c['kth_gap']:.4g}", flush=True)
 
 
-def phase_kernels(seed: int, sizes: dict, res: dict,
-                  measured: bool = False) -> None:
+def phase_kernels(seed: int, sizes: dict, res: dict) -> None:
     """Check every (kernel, size) of `sizes` ({"K1": {N, ...}, ...})
     not yet in `res`. K1-K3 share a round, so one size checks all three;
-    K6 and K7 are checked together. measured: K2-K5's launch limits
-    fail where the profiler sees no device time (else they print that
-    they were not measured)."""
+    K6 and K7 are checked together."""
     todo = {kid: {s for s in sizes.get(kid, ())
                   if s not in res.get(kid, {}).get("shapes", {})}
             for kid in KERNEL_NAMES}
     for N in sorted(set().union(*(todo[k] for k in ROUND_KERNELS))):
-        check_round(seed, N, res, measured)
+        check_round(seed, N, res)
     for seg_n in sorted(todo["K4"]):
-        check_segment(seed, seg_n, res, measured)
+        check_segment(seed, seg_n, res)
     for seg_n in sorted(todo["K5"]):
-        check_scan(seed, seg_n, res, measured)
+        check_scan(seed, seg_n, res)
     for N in sorted(set().union(*(todo[k] for k in PLANE_KERNELS))):
         check_planes(seed, N, res)
     for size in sorted(todo["K8"]):
@@ -2182,6 +2250,398 @@ def phase_mesh(seed: int, work: str, stcs_tbl,
     return {"sizes": sizes, "legs": legs, "reports": reports}
 
 
+# ------------------------------------------------------------ 8. tools --
+
+# cassandra-stress's documented `write n=1000000` (the tool's docstring)
+STRESS_ROWS = 1_000_000
+# the smoke's stress rows, a cut of STRESS_ROWS (printed as `reduced`)
+# to the floor of 200,000: the tools are host-bound Python (on the
+# H100's host, about 2,200 writes/s and 134 reads/s, PERF.md section
+# 5), so (a) and (b) take about 410 s, and phase 8 runs beside phases
+# 4-6 in processes of its own
+STRESS_ROWS_RUN = 200_000
+# at least this many sstables before the major compaction
+STRESS_SSTABLES = 4
+# memtable bytes a stress.standard1 row holds (key and four 34 B blobs,
+# measured on the port's memtable): sizes the flush threshold
+STRESS_ROW_BYTES = 324
+# harry: OpGenerator's mix without range deletions (a round holding a
+# range tombstone's bound merges on the host, as in the JAX package),
+# on enough partitions that the compaction writes a full segment (K4,
+# K5): over 1,024 partitions of 64 rows the partition deletions hold
+# the output below one segment at 100,000 and 200,000 ops
+HARRY_OPS = 150_000
+HARRY_PKS = 2048
+HARRY_CKS = 64
+HARRY_FLUSH_EVERY = 15_000
+HARRY_SKIP = ("del_range",)
+HARRY_DDL = ("CREATE TABLE t (k int, c int, v text, w int, st text static, "
+             "m map<text,int>, PRIMARY KEY (k, c))")
+# phase 8's processes, each run beside phases 4-6
+TOOLS_PARTS = ("stress", "harry")
+# seconds after the smoke's start by which phase 8's processes must end
+TOOLS_DEADLINE_S = 1000
+
+
+def _kernel_launches(ids: dict) -> dict:
+    from cassandra_tpu_torch.ops import cuda_lib
+    return {ids[k]: v for k, v in cuda_lib.launches().items() if k in ids}
+
+
+def _launch_sizes(ids: dict) -> dict:
+    from cassandra_tpu_torch.ops import cuda_lib
+    return {ids[k]: v for k, v in cuda_lib.launch_sizes().items()
+            if k in ids and v}
+
+
+def tools_compaction(label: str, data_dir: str, table, work: str,
+                     ids: dict, must: tuple, **task_kw) -> dict:
+    """A major compaction of `table` in the closed engine directory
+    data_dir (every row flushed; its commit log is not copied):
+    compact_leg on one copy with the native engine and on another
+    through CompactionTask(engine="device") on the card, launch
+    counters reset just before the device leg and read just after. The
+    outputs must be sha256-equal and every kernel in `must` must
+    launch. Returns the device leg; its `root` holds the compacted
+    engine directory."""
+    from cassandra_tpu_torch.ops import cuda_lib
+
+    roots = {}
+    for leg in ("native", "device"):
+        roots[leg] = os.path.join(work, f"{label}-{leg}")
+        shutil.copytree(data_dir, roots[leg],
+                        ignore=shutil.ignore_patterns("commitlog"))
+    native = compact_leg(roots["native"], table, engine="native")
+    shutil.rmtree(roots["native"], ignore_errors=True)
+    cuda_lib.reset_launches()
+    leg = compact_leg(roots["device"], table, engine="device",
+                      device=DEVICE, **task_kw)
+    leg.update(name=label, src="tools", root=roots["device"],
+               native_wall=native["wall"],
+               launches=_kernel_launches(ids), sizes=_launch_sizes(ids))
+    print_leg(f"{label} (native {native['wall']:.3f} s)", leg)
+    need(leg["hashes"] == native["hashes"],
+         f"{label}: the device compaction differs from the native one")
+    print(f"    sha256 equal to native over {len(leg['hashes'])} "
+          f"components", flush=True)
+    for kid in must:
+        need(leg["launches"][kid] > 0, f"{label}: {kid} was not launched")
+    return leg
+
+
+def _repl(session, stmts: str) -> str:
+    import io
+
+    from cassandra_tpu_torch.tools import cqlsh
+    out = io.StringIO()
+    cqlsh.repl(session, stdin=io.StringIO(stmts + "\nEXIT\n"), stdout=out)
+    return out.getvalue()
+
+
+def tools_copy(s, n: int, work: str) -> dict:
+    """(b) cqlsh COPY TO a CSV from the compacted table, COPY FROM it
+    into a fresh card engine, flush, COPY TO again: the CSVs must be
+    byte-equal and hold n rows."""
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.tools import stress
+
+    first = os.path.join(work, "copy-1.csv")
+    second = os.path.join(work, "copy-2.csv")
+    t0 = time.perf_counter()
+    out = _repl(s, f"COPY stress.standard1 TO '{first}';")
+    need(f"Exported {n} rows to {first}" in out, f"copy: {out[-300:]}")
+    t_to = time.perf_counter() - t0
+    eng = StorageEngine(os.path.join(work, "tools-copy"), Schema(),
+                        device=DEVICE)
+    try:
+        s2 = Session(eng)
+        stress.setup(s2)
+        need("standard1" in eng.schema.keyspaces["stress"].tables,
+             "copy: setup() made no stress.standard1")
+        t0 = time.perf_counter()
+        out = _repl(s2, f"COPY stress.standard1 FROM '{first}';")
+        need(f"Imported {n} rows from {first}" in out, f"copy: {out[-300:]}")
+        t_from = time.perf_counter() - t0
+        eng.store("stress", "standard1").flush()
+        t0 = time.perf_counter()
+        out = _repl(s2, f"COPY stress.standard1 TO '{second}';")
+        need(f"Exported {n} rows to {second}" in out, f"copy: {out[-300:]}")
+        t_again = time.perf_counter() - t0
+    finally:
+        eng.close()
+    with open(first, "rb") as f1, open(second, "rb") as f2:
+        a, b = f1.read(), f2.read()
+    need(a == b, "copy: the second export differs from the first")
+    need(a.count(b"\n") == n + 1, "copy: the CSV does not hold n rows")
+    print(f"  copy: COPY TO {t_to:.3f} s, COPY FROM {t_from:.3f} s, COPY "
+          f"TO again {t_again:.3f} s; {n} rows, {len(a)} bytes, "
+          f"byte-equal", flush=True)
+    return {"to_s": t_to, "from_s": t_from, "again_s": t_again,
+            "bytes": len(a)}
+
+
+def tools_sstabletools(eng, s, cells: int, key: int) -> dict:
+    """(c) sstabletools over the engine's compacted sstables (`cells`
+    read back from them): verify passes, the metadata's cell counts
+    sum to the cells read back, and the dump of a partition equals a
+    SELECT of it."""
+    from cassandra_tpu_torch.tools import sstabletools as sst
+
+    ver = sst.verify(eng.data_dir, "stress", "standard1")
+    need(ver and all(v["status"] == "ok" for v in ver),
+         f"sstabletools: verify {ver}")
+    meta = sst.metadata(eng.data_dir, "stress", "standard1")
+    need(sum(m["cells"] for m in meta) == cells,
+         f"sstabletools: metadata counts {[m['cells'] for m in meta]}, "
+         f"read back {cells}")
+    dumped = sst.dump(eng.data_dir, "stress", "standard1",
+                      generation=meta[-1]["generation"])
+    rows = [r for r in dumped[0]["rows"] if r["key"] == key]
+    rs = s.execute("SELECT * FROM stress.standard1 WHERE key = ?", [key])
+    want = [dict(zip(rs.column_names, r)) for r in rs.rows]
+    need(len(rows) == 1 and rows == want,
+         f"sstabletools: dump of key {key} {rows} != SELECT {want}")
+    print(f"  sstabletools: verify ok on {len(ver)} sstables, metadata "
+          f"{cells} cells, dump of key {key} equal to its SELECT",
+          flush=True)
+    return {"verified": len(ver), "cells": cells}
+
+
+def tools_stress(work: str, n: int, ids: dict) -> dict:
+    """(a) stress.write of n rows into stress.standard1, n/10
+    stress.read (all must hit), then the table's major compaction with
+    device compress off (K1-K4 through the resident program) beside a
+    native one; (b) COPY and (c) sstabletools on an engine reopened
+    over the device leg's output. Each part's wall seconds."""
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.tools import stress
+
+    secs = {}
+    t0 = time.perf_counter()
+    data = os.path.join(work, "tools-stress")
+    # flush after a fifth of the rows: at least STRESS_SSTABLES sstables
+    eng = StorageEngine(data, Schema(), device=DEVICE,
+                        flush_threshold=n * STRESS_ROW_BYTES // 5)
+    try:
+        s = Session(eng)
+        stress.setup(s)
+        # setup() swallows its CREATE TABLE's failure: check for the table
+        need("standard1" in eng.schema.keyspaces["stress"].tables,
+             "stress: setup() made no stress.standard1")
+        w = stress.write(s, n)
+        cfs = eng.store("stress", "standard1")
+        cfs.flush()
+        n_sst = len(cfs.live_sstables())
+        need(n_sst >= STRESS_SSTABLES,
+             f"stress: {n_sst} sstables, fewer than {STRESS_SSTABLES}")
+        r = stress.read(s, n // 10, keys=n)
+        need(r["hits"] == n // 10,
+             f"stress: {r['hits']} of {n // 10} reads hit")
+        table = cfs.table
+    finally:
+        eng.close()
+    print(f"  stress: write {json.dumps(w)}, {n_sst} sstables; read "
+          f"{json.dumps(r)}", flush=True)
+    # device compress off: that leg scans the payload on the host, at
+    # about 72 s a million cells (PERF.md section 5)
+    comp = tools_compaction("stress-compaction", data, table, work, ids,
+                            ("K1", "K2", "K3", "K4"), device_compress=False)
+    need(comp["launches"]["K5"] == 0,
+         "stress: K5 ran with device compress off")
+    secs["stress"] = time.perf_counter() - t0
+    eng = StorageEngine(comp["root"], Schema(), device=DEVICE)
+    try:
+        s = Session(eng)
+        t0 = time.perf_counter()
+        cp = tools_copy(s, n, work)
+        secs["copy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_sstabletools(eng, s, comp["read_back"], n // 3)
+        secs["sstabletools"] = time.perf_counter() - t0
+    finally:
+        eng.close()
+    return {"seconds": secs, "legs": [comp], "write": w, "read": r,
+            "sstables": n_sst, "copy": cp}
+
+
+def tools_harry(seed: int, work: str, ids: dict, ops: int | None = None,
+                flush_every: int | None = None,
+                must: tuple = ("K1", "K2", "K3", "K4", "K5")) -> dict:
+    """(d) harry: `ops` generated ops (TTLs, cell, row, partition and
+    collection deletions, statics; the kinds in HARRY_SKIP left out of
+    the engine and the model alike) through a Session on the card, a
+    flush every `flush_every` ops; every partition against the model,
+    then a device major compaction in the default configuration beside
+    a native one (tools_compaction; `must`: the kernels it must
+    launch), then every partition again on an engine reopened over the
+    device leg's output. One virtual clock (`advance` ops move it)
+    drives the engines (timeutil.CLOCK) and the model."""
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.tools import harry
+    from cassandra_tpu_torch.utils import timeutil
+
+    ops = HARRY_OPS if ops is None else ops
+    flush_every = HARRY_FLUSH_EVERY if flush_every is None else flush_every
+    clock = {"now": int(time.time())}
+    real_clock = timeutil.CLOCK
+    timeutil.CLOCK = lambda: clock["now"]
+    model = harry.Model()
+
+    def check(s) -> float:
+        t = time.perf_counter()
+        for pk in range(HARRY_PKS):
+            try:
+                harry.check_partition(s, model, "t", pk, seed, ops,
+                                      now=clock["now"])
+            except AssertionError as e:
+                raise SmokeError(f"harry: {e}") from None
+        return time.perf_counter() - t
+
+    secs = {}
+    data = os.path.join(work, "tools-harry")
+    t_all = t0 = time.perf_counter()
+    try:
+        eng = StorageEngine(data, Schema(), device=DEVICE)
+        try:
+            s = Session(eng)
+            s.execute("CREATE KEYSPACE fz WITH replication = "
+                      "{'class': 'SimpleStrategy', 'replication_factor': 1}")
+            s.execute("USE fz")
+            s.execute(HARRY_DDL)
+            cfs = eng.store("fz", "t")
+            gen = harry.OpGenerator(seed, n_pks=HARRY_PKS, n_cks=HARRY_CKS)
+            kinds: dict = {}
+            for op in gen:
+                if op.index >= ops:
+                    break
+                if op.kind not in HARRY_SKIP:
+                    kinds[op.kind] = kinds.get(op.kind, 0) + 1
+                    if op.kind == "advance":
+                        clock["now"] += op.seconds
+                    elif op.kind not in ("flush", "compact"):
+                        s.execute(op.cql("t"))
+                    model.apply(op, now_s=clock["now"])
+                if (op.index + 1) % flush_every == 0:
+                    cfs.flush()
+            secs["ops"] = time.perf_counter() - t0
+            n_sst = len(cfs.live_sstables())
+            need(n_sst == ops // flush_every, f"harry: {n_sst} sstables")
+            secs["check"] = check(s)
+            table = cfs.table
+        finally:
+            eng.close()
+        comp = tools_compaction("harry-compaction", data, table, work, ids,
+                                must)
+        eng = StorageEngine(comp["root"], Schema(), device=DEVICE)
+        try:
+            s = Session(eng)
+            s.execute("USE fz")
+            secs["check_after"] = check(s)
+        finally:
+            eng.close()
+    finally:
+        timeutil.CLOCK = real_clock
+    print(f"  harry: {ops} ops in {secs['ops']:.3f} s ({json.dumps(kinds)})"
+          f", {n_sst} sstables; {HARRY_PKS} partitions equal to the model "
+          f"before ({secs['check']:.3f} s) and after "
+          f"({secs['check_after']:.3f} s) the compaction", flush=True)
+    return {"seconds": {"harry": time.perf_counter() - t_all},
+            "legs": [comp], "harry": secs, "kinds": kinds}
+
+
+def tools_child(part: str, seed: int, work: str) -> int:
+    """One process of phase 8 (`part` of TOOLS_PARTS), on the kernels
+    phase 2 built: its lines on stdout, its result as JSON in
+    work/tools-<part>.json."""
+    from cassandra_tpu_torch.ops import cuda_lib
+
+    cuda_lib.lib()
+    ids = {name: kid for kid, name in KERNEL_NAMES.items()}
+    if part == "stress":
+        out = tools_stress(work, STRESS_ROWS_RUN, ids)
+    else:
+        out = tools_harry(seed, work, ids)
+    print(f"tools [{part}]: seconds " + json.dumps(
+        {k: round(v, 3) for k, v in out["seconds"].items()}), flush=True)
+    with open(os.path.join(work, f"tools-{part}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def start_tools(seed: int, work: str) -> dict:
+    """Phase 8's processes (TOOLS_PARTS), each a chip_smoke.py of its own
+    with its output in work/tools-<part>.log: they run beside phases
+    4-6, so their host-bound Python shares the host's cores and not the
+    smoke's time. Each process keeps its own launch counters."""
+    if STRESS_ROWS_RUN != STRESS_ROWS:
+        print(json.dumps({"reduced": {
+            "phase": "tools", "stress_rows": STRESS_ROWS_RUN,
+            "published": STRESS_ROWS}}))
+    procs = {}
+    for part in TOOLS_PARTS:
+        log = open(os.path.join(work, f"tools-{part}.log"), "w")
+        cmd = [sys.executable, os.path.abspath(__file__), "--tools-part",
+               part, "--work", work, "--seed", str(seed)]
+        procs[part] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def finish_tools(procs: dict, deadline: float) -> dict:
+    """Waits for phase 8's processes (until `deadline` on the
+    perf_counter clock), prints their output, and fails where one
+    failed; merges their legs, launch sizes and seconds."""
+    out: dict = {"sizes": {}, "legs": [], "seconds": {}}
+    for part, (proc, log) in procs.items():
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - t0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        log.flush()
+        with open(log.name) as f:
+            text = f.read()
+        print(f"tools [{part}]: waited {time.perf_counter() - t0:.1f} s "
+              f"after phase 6; exit code {rc}; its output:", flush=True)
+        sys.stdout.write(text)
+        need(rc == 0, f"tools [{part}]: exit code {rc}: "
+                      + " | ".join(text.strip().splitlines()[-3:]))
+        with open(os.path.join(os.path.dirname(log.name),
+                               f"tools-{part}.json")) as f:
+            res = json.load(f)
+        out["seconds"].update(res["seconds"])
+        for leg in res["legs"]:
+            leg["sizes"] = {kid: {int(n): c for n, c in by.items()}
+                            for kid, by in leg["sizes"].items()}
+            for kid, by in leg["sizes"].items():
+                for size, c in by.items():
+                    out["sizes"].setdefault(kid, {})
+                    out["sizes"][kid][size] = (
+                        out["sizes"][kid].get(size, 0) + c)
+            out["legs"].append(leg)
+    print("tools: seconds by part " + json.dumps(
+        {k: round(v, 3) for k, v in out["seconds"].items()}), flush=True)
+    print("tools: launches by leg " + json.dumps(
+        {g["name"]: {k: v for k, v in g["launches"].items() if v}
+         for g in out["legs"]}), flush=True)
+    return out
+
+
+def stop_tools(procs: dict) -> None:
+    """Ends phase 8's processes that still run."""
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
 # -------------------------------------------------------------- report --
 
 SOURCES = {
@@ -2273,10 +2733,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cells-per-run", type=int, default=STCS_CELLS_PER_RUN)
     ap.add_argument("--seed", type=int, default=7)
+    # phase 8's processes (start_tools)
+    ap.add_argument("--tools-part", choices=TOOLS_PARTS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.tools_part:
+        return tools_child(args.tools_part, args.seed, args.work)
     t_start = time.perf_counter()
     info = phase_card()
     phase_build()
@@ -2289,12 +2755,15 @@ def main(argv=None) -> int:
     planned["K10"] = {ANN_ROWS}
     planned["K8"] = {(MESH_SHARDS, 1 << 20)}       # the skewed-1M step
     t0 = time.perf_counter()
-    phase_kernels(args.seed, planned, res, measured=True)
+    phase_kernels(args.seed, planned, res)
     print(f"kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     build_root = os.path.join(REPO, "cassandra_tpu_torch", "build")
     os.makedirs(build_root, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke-", dir=build_root)
+    procs: dict = {}
     try:
+        t_tools = time.perf_counter()
+        procs = start_tools(args.seed, work)
         t0 = time.perf_counter()
         e2e = phase_e2e(args.seed, args.cells_per_run, work)
         print(f"e2e: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2305,15 +2774,20 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mesh = phase_mesh(args.seed, work, e2e["table"])
         print(f"mesh: {time.perf_counter() - t0:.1f} s", flush=True)
+        tools = finish_tools(procs, t_start + TOOLS_DEADLINE_S)
+        print(f"tools: {time.perf_counter() - t_tools:.1f} s from its "
+              f"start", flush=True)
     finally:
+        stop_tools(procs)
         shutil.rmtree(work, ignore_errors=True)
     for kid, by in read["sizes"].items():
         e2e["sizes"][kid] = by
-    for kid, by in mesh["sizes"].items():
-        for size, c in by.items():
-            e2e["sizes"].setdefault(kid, {})
-            e2e["sizes"][kid][size] = e2e["sizes"][kid].get(size, 0) + c
-    e2e["legs"] += read["legs"] + mesh["legs"]
+    for part in (mesh, tools):
+        for kid, by in part["sizes"].items():
+            for size, c in by.items():
+                e2e["sizes"].setdefault(kid, {})
+                e2e["sizes"][kid][size] = e2e["sizes"][kid].get(size, 0) + c
+    e2e["legs"] += read["legs"] + mesh["legs"] + tools["legs"]
     # 7. the kernels at every other size the main paths launched
     seen = {kid: set(e2e["sizes"].get(kid, ())) for kid in KERNEL_NAMES}
     print("shapes: the main path launched " + json.dumps(

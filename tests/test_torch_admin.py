@@ -189,12 +189,14 @@ def test_nodetool_compact_sstables_sha256_equal(engines):
 
 
 def test_nodetool_unported_module_raises(engines):
-    """A command whose module the port does not have yet (copyutil)
-    fails at that import; nothing answers in its place."""
+    """A command whose module the port does not have yet (the cluster
+    layer's replication, for cleanup) fails at that import; nothing
+    answers in its place. (getsstables, which failed so until copyutil
+    was ported, is held to the JAX package in tests/test_torch_tools.py.)"""
+    import types
     _j, (teng, _ts, tt) = engines
-    with pytest.raises(ImportError, match="copyutil"):
-        tt.run_command("getsstables", engine=teng, keyspace="adm",
-                       table="t", key="1")
+    with pytest.raises(ImportError, match="cluster"):
+        tt.cleanup(types.SimpleNamespace(engine=teng))
 
 
 def test_device_programs_cost_columns(tmp_path):

@@ -187,13 +187,12 @@ def test_meta_block_matches_plain(n):
     assert dw.meta_stats(st)[:2] == (int(ts.min()), int(ts.max()))
 
 
-def _device_launches(fn, first: str) -> int:
-    """Device launches (kernels and memsets) of one call of fn, from
-    torch.profiler (chip_smoke.sort_breakdown)."""
-    from chip_smoke import launches_per_call, sort_breakdown
-    steps = sort_breakdown(fn, first)
-    assert steps is not None, "the profiler saw no device time"
-    return launches_per_call(steps)
+def _device_launches(fn) -> int:
+    """Device launches (kernels, memsets and copies) of one call of fn,
+    the nodes of a CUDA graph captured from it
+    (chip_smoke.graph_launches)."""
+    from chip_smoke import graph_launches
+    return graph_launches(fn)
 
 
 # (kind, live rows, padded rows, lanes): K3's tiles are 4,096 sorted
@@ -239,8 +238,8 @@ def test_compact_gather_tiles_match_plain(kind, n, N, K):
     n_keep = int(counts[0])
     assert n_keep == {"none": 0, "all": N}.get(kind, n_keep)
     assert 0 < n_keep < N or kind in ("none", "all")
-    assert _device_launches(lambda: dw.compact_gather(ops, perm, packed),
-                            "cmp_partition") <= 3
+    raw = dw.compact_gather.__wrapped__
+    assert _device_launches(lambda: raw(ops, perm, packed)) <= 3
 
 
 @pytest.mark.parametrize("n", [1, 1027, 4099, 65_536])
@@ -266,8 +265,8 @@ def test_meta_block_tiles_match_plain(n):
         block = dw.meta_block_buffer(*cols).cpu().numpy()
         assert dw.stats_of_block(block, n) == dw.meta_stats(st)
         assert bytes(block[:25 * n]) == bytes(meta.cpu().numpy())
-    assert _device_launches(lambda: dw.meta_block_kernel(*cols),
-                            "meta_tiles") <= 2
+    raw = dw.meta_block_buffer.__wrapped__
+    assert _device_launches(lambda: raw(*cols)) <= 2
 
 
 def test_segment_scan_matches_plain():
@@ -691,3 +690,70 @@ def test_mesh_step_matches_plain(S, N):
     assert after == before + 1
     assert cuda_lib.last_sort("mesh.sharded_step")["passes"] == \
         dm.sort_plan_plain(ops)["passes"]
+
+
+def test_stress_then_device_compaction_matches_native(tmp_path):
+    """A small stress.write on a card engine (five flushes), every
+    stress.read a hit, then the table's major compaction on the card,
+    with device compress off (K1-K4) and at the default (K1-K5), each
+    sha256-equal to a native compaction of the same sstables."""
+    import shutil
+
+    import chip_smoke
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.tools import stress
+
+    dev = _card()
+    n = 20_000
+    eng = StorageEngine(str(tmp_path / "eng"), Schema(), device=dev,
+                        flush_threshold=n * chip_smoke.STRESS_ROW_BYTES // 5)
+    try:
+        s = Session(eng)
+        stress.write(s, n)
+        cfs = eng.store("stress", "standard1")
+        cfs.flush()
+        assert len(cfs.live_sstables()) >= 4
+        assert stress.read(s, n // 10, keys=n)["hits"] == n // 10
+        table = cfs.table
+        roots = {}
+        for leg in ("native", "off", "default"):
+            roots[leg] = str(tmp_path / leg)
+            shutil.copytree(cfs.directory, os.path.join(
+                roots[leg], "stress", os.path.basename(cfs.directory)))
+    finally:
+        eng.close()
+    native = chip_smoke.compact_leg(roots["native"], table, engine="native")
+    for leg, kw in (("off", {"device_compress": False}), ("default", {})):
+        cuda_lib.reset_launches()
+        out = chip_smoke.compact_leg(roots[leg], table, engine="device",
+                                     device=dev, **kw)
+        got = cuda_lib.launches()
+        assert out["hashes"] == native["hashes"], leg
+        for k in ("merge.sort_perm", "merge.reconcile",
+                  "write.compact_gather", "write.meta_block"):
+            assert got[k] > 0, (leg, k)
+        assert (got["write.segment_scan"] > 0) == (leg == "default")
+
+
+def test_harry_under_device_compaction_matches_model(tmp_path,
+                                                     monkeypatch):
+    """harry's op stream on a card engine, every partition equal to the
+    model before and after a device major compaction that is
+    sha256-equal to a native one (chip_smoke's phase 8 (d) at a small
+    size)."""
+    import chip_smoke
+
+    _card()
+    monkeypatch.setattr(chip_smoke, "HARRY_OPS", 4000)
+    monkeypatch.setattr(chip_smoke, "HARRY_FLUSH_EVERY", 400)
+    monkeypatch.setattr(chip_smoke, "HARRY_PKS", 48)
+    monkeypatch.setattr(chip_smoke, "HARRY_CKS", 16)
+    ids = {name: kid for kid, name in chip_smoke.KERNEL_NAMES.items()}
+    # under one full segment: K4 and K5 do not run
+    out = chip_smoke.tools_harry(11, str(tmp_path), ids,
+                                 must=("K1", "K2", "K3"))
+    comp = out["legs"][0]
+    assert comp["stats"]["cells_written"] < comp["stats"]["cells_read"]
+    assert all(comp["launches"][k] > 0 for k in ("K1", "K2", "K3"))

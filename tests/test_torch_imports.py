@@ -62,7 +62,31 @@ _PROBE = textwrap.dedent("""
     nodetool.run_command("snapshot", engine=eng, tag="p")
     assert len(s.execute("SELECT * FROM system_views.snapshots").rows) == 1
     assert s.execute("SELECT * FROM system_views.thread_pools").rows
+    # the single-node tools: stress, cqlsh with COPY, sstabletools, harry
+    import io
+    from cassandra_tpu_torch.tools import cqlsh, harry, sstabletools, stress
+    assert stress.write(s, 20)["n"] == 20
+    assert stress.read(s, 5, keys=20)["hits"] == 5
+    eng.store("stress", "standard1").flush()
+    csv = tempfile.mkdtemp() + "/s.csv"
+    out = io.StringIO()
+    cqlsh.repl(s, stdin=io.StringIO(
+        f"COPY stress.standard1 TO '{{csv}}';\\nEXIT\\n"), stdout=out)
+    assert "Exported 20 rows" in out.getvalue(), out.getvalue()
+    assert [v["status"] for v in sstabletools.verify(
+        eng.data_dir, "stress", "standard1")] == ["ok"]
+    assert nodetool.getsstables(eng, "stress", "standard1", "3")
+    m = harry.Model()
+    for op, _ in zip(harry.OpGenerator(1), range(50)):
+        m.apply(op)
+    from cassandra_tpu_torch.utils.merkle import MerkleTree
+    assert len(MerkleTree(4).root()) == 16
     eng.close()
+    # the port's lint
+    from cassandra_tpu_torch.analysis import checks
+    from cassandra_tpu_torch.analysis.walker import ProjectIndex
+    assert checks.run_all(ProjectIndex.from_sources({{"a.py": "x = 1"}})) \
+        == []
     from cassandra_tpu_torch.service.audit import AuditLog
     AuditLog(tempfile.mkdtemp() + "/a.jsonl").log("UseStatement", "USE ks",
                                                   None, None)
@@ -92,7 +116,21 @@ _PROBE = textwrap.dedent("""
               "cassandra_tpu_torch.storage.rewrite",
               "cassandra_tpu_torch.storage.saved_caches",
               "cassandra_tpu_torch.service.audit",
-              "cassandra_tpu_torch.tools.nodetool"):
+              "cassandra_tpu_torch.tools.nodetool",
+              "cassandra_tpu_torch.tools.copyutil",
+              "cassandra_tpu_torch.tools.cqlsh",
+              "cassandra_tpu_torch.tools.harry",
+              "cassandra_tpu_torch.tools.sstabletools",
+              "cassandra_tpu_torch.tools.stress",
+              "cassandra_tpu_torch.utils.merkle",
+              "cassandra_tpu_torch.analysis.walker",
+              "cassandra_tpu_torch.analysis.report",
+              "cassandra_tpu_torch.analysis.__main__",
+              "cassandra_tpu_torch.analysis.checks.lock_order",
+              "cassandra_tpu_torch.analysis.checks.worker_loops",
+              "cassandra_tpu_torch.analysis.checks.clock_discipline",
+              "cassandra_tpu_torch.analysis.checks.knob_wiring",
+              "cassandra_tpu_torch.analysis.checks.loop_blocking"):
         assert m in sys.modules, m
     bad = sorted(m for m in sys.modules
                  if (m == "cassandra_tpu" or m.startswith("cassandra_tpu."))
@@ -115,7 +153,7 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("BAD ", "N ")))
     assert lines["BAD"] == "[]"
-    assert int(lines["N"]) >= 90      # the whole port was imported
+    assert int(lines["N"]) >= 105     # the whole port was imported
 
 
 def test_entry_points_default_to_cuda(tmp_path):
