@@ -179,26 +179,18 @@ class Config:
     # streaming / hints (cassandra.yaml / hints section); both throughput
     # knobs feed the stream sender's token bucket (cluster/
     # stream_session.py), hot-reloadable via the Node settings listeners
-    # ctpulint: allow(knob-wiring, reason=cluster/stream_session.py and cluster/node.py re-read this knob; the port does not hold them yet, so nothing reads it here until the cluster layer lands)
     stream_throughput_outbound: float = spec("rate", 24.0, mutable=True)
-    # ctpulint: allow(knob-wiring, reason=cluster/stream_session.py and cluster/node.py re-read this knob; the port does not hold them yet, so nothing reads it here until the cluster layer lands)
     inter_dc_stream_throughput_outbound: float = spec("rate", 24.0,
                                                       mutable=True)
-    # ctpulint: allow(knob-wiring, reason=cluster/node.py re-reads this knob; the port does not hold it yet, so nothing reads it here until the cluster layer lands)
     hinted_handoff_enabled: bool = mut(True)
-    # ctpulint: allow(knob-wiring, reason=cluster/node.py re-reads this knob; the port does not hold it yet, so nothing reads it here until the cluster layer lands)
     max_hint_window: float = spec("duration", 3 * 3600.0, mutable=True)
     hints_flush_period: float = spec("duration", 10.0)
 
     # request timeouts (cassandra.yaml:1320-1360), mutable like
     # DatabaseDescriptor.setReadRpcTimeout etc.
-    # ctpulint: allow(knob-wiring, reason=cluster/coordinator.py re-reads this knob; the port does not hold it yet, so nothing reads it here until the cluster layer lands)
     read_request_timeout: float = spec("duration", 5.0, mutable=True)
-    # ctpulint: allow(knob-wiring, reason=cluster/coordinator.py re-reads this knob; the port does not hold it yet, so nothing reads it here until the cluster layer lands)
     range_request_timeout: float = spec("duration", 10.0, mutable=True)
-    # ctpulint: allow(knob-wiring, reason=cluster/coordinator.py and cluster/counters.py re-read this knob; the port does not hold them yet, so nothing reads it here until the cluster layer lands)
     write_request_timeout: float = spec("duration", 2.0, mutable=True)
-    # ctpulint: allow(knob-wiring, reason=cluster/coordinator.py and cluster/counters.py re-read this knob; the port does not hold them yet, so nothing reads it here until the cluster layer lands)
     counter_write_request_timeout: float = spec("duration", 5.0,
                                                 mutable=True)
     # ctpulint: allow(knob-wiring, reason=paxos contention backoff is attempt-count bounded today (cluster/paxos.py); the knob binds when contention waits become deadline-based)
@@ -209,7 +201,6 @@ class Config:
     request_timeout: float = spec("duration", 10.0, mutable=True)
 
     # failure detection / gossip
-    # ctpulint: allow(knob-wiring, reason=cluster/gossip.py and cluster/node.py re-read this knob; the port does not hold them yet, so nothing reads it here until the cluster layer lands)
     phi_convict_threshold: float = mut(8.0)
     gossip_interval: float = spec("duration", 1.0)
 
@@ -253,7 +244,6 @@ class Config:
     # stay ordered on the distributor. 0 = auto (one worker per core,
     # capped — every in-process node runs its own pool). Hot-resizable;
     # node shutdown withdraws the demand with the pool.
-    # ctpulint: allow(knob-wiring, reason=cluster/messaging.py and cluster/node.py re-read this knob; the port does not hold them yet, so nothing reads it here until the cluster layer lands)
     internode_dispatch_threads: int = mut(0)
 
     # caches (cassandra.yaml key/row/counter cache section)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .cluster.ring import Endpoint, Ring
 from .ops.merge import operands_to_device, planes_to_device
 from .storage.cellbatch import CellBatch
 
@@ -47,3 +48,24 @@ def planes_from_numpy(planes_or_buf, device):
         return planes_to_device({k: np.asarray(v)
                                  for k, v in planes_or_buf.items()}, device)
     return planes_to_device(np.asarray(planes_or_buf), device)
+
+
+def ring_from(ring):
+    """The port's cluster Ring holding another ring's state: each
+    endpoint (name, dc, rack, host, port) with its tokens, the pending
+    tokens of joining or moving endpoints, replacements in progress and
+    the old tokens of moves. Reads attributes only."""
+    def ep(e) -> Endpoint:
+        return Endpoint(e.name, dc=e.dc, rack=e.rack, host=e.host,
+                        port=int(e.port))
+
+    out = Ring()
+    for e, tokens in ring.endpoints.items():
+        out.add_node(ep(e), [int(t) for t in tokens])
+    for e, tokens in ring.pending.items():
+        out.add_pending(ep(e), [int(t) for t in tokens])
+    for new, dead in ring.replacing.items():
+        out.replacing[ep(new)] = ep(dead)
+    for e, tokens in ring.moving.items():
+        out.moving[ep(e)] = [int(t) for t in tokens]
+    return out

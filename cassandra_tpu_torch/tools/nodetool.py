@@ -6,9 +6,10 @@ API on the Node/StorageEngine (the JMX transport is replaced by in-process
 calls; a remote admin protocol can wrap these functions); `python -m
 cassandra_tpu_torch.tools.nodetool <cmd> --data <dir> [--device cpu]`
 drives a local engine (its kernels on `cuda` unless `--device` says
-otherwise). Commands that need a module the port does not have yet
-(the cluster layer, sstableloader, the admin protocol) raise
-ImportError at that module's import.
+otherwise). The cluster commands (repair, cleanup, getendpoints,
+describering, rebuild) take a `cluster.node.Node`. Commands that need
+a module the port does not have yet (sstableloader for bulkload, the
+admin protocol) raise ImportError at that module's import.
 
 Implemented commands: status, info, flush, compact, compactionstats,
 commitlogstats, tablestats, repair, cleanup, gettraces, exportmetrics,

@@ -140,6 +140,30 @@ result line:
               before each device compaction and read just after (each
               process has its own); each part prints its wall seconds
               and the compactions their launches by kernel.
+  9. cluster  a third process of its own beside phases 4-6, like phase
+              8's parts: the in-process cluster (LocalCluster: 3 nodes,
+              RF 3, every node's engine on the card, autocompaction
+              off). (a) stress.write of CLUSTER_ROWS rows (cut from
+              cassandra-stress's `write n=1000000 cl=QUORUM -schema
+              replication(factor=3)`, printed as `reduced`) through
+              node 1 at QUORUM, every live replica drained and flushed
+              after each quarter; node 3 is down, with hinted handoff
+              off, for the last quarter and then restarted; (b) a full
+              repair from node 1 (Merkle trees of depth 6, cut from 10
+              and printed as `reduced`), after which node 3's own store
+              holds every row and a preview repair finds no mismatch;
+              (c) per node, compact_leg on copies of its sstables with
+              the native engine and through
+              CompactionTask(engine="device"), sha256-equal (node 1 in
+              the default configuration, K1-K5 must launch; nodes 2 and
+              3 with device compress off, K1-K4 must and K5 must not),
+              then the same device compaction of the node's live store,
+              equal to its copy's; (d) 2,000 keys at QUORUM through
+              node 2 and 500 at ALL through node 3, each the row as
+              written. Launch counters are reset just before each
+              device compaction and read just after; it prints each
+              part's wall seconds, writes/s, reads/s and the launches
+              of each node's compactions.
   7. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
               its partition's end pads to 2^20; the scan mask's runs of
@@ -2277,9 +2301,10 @@ HARRY_FLUSH_EVERY = 15_000
 HARRY_SKIP = ("del_range",)
 HARRY_DDL = ("CREATE TABLE t (k int, c int, v text, w int, st text static, "
              "m map<text,int>, PRIMARY KEY (k, c))")
-# phase 8's processes, each run beside phases 4-6
-TOOLS_PARTS = ("stress", "harry")
-# seconds after the smoke's start by which phase 8's processes must end
+# phase 8's processes and phase 9's, each run beside phases 4-6
+TOOLS_PARTS = ("stress", "harry", "cluster")
+# seconds after the smoke's start by which the processes of phases 8
+# and 9 must end
 TOOLS_DEADLINE_S = 1000
 
 
@@ -2555,8 +2580,265 @@ def tools_harry(seed: int, work: str, ids: dict, ops: int | None = None,
             "legs": [comp], "harry": secs, "kinds": kinds}
 
 
+# ---------------------------------------------------------- 9. cluster --
+
+# cassandra-stress's `write n=1000000 cl=QUORUM -schema
+# replication(factor=3)` against a three-node cluster
+CLUSTER_PUBLISHED = 1_000_000
+# the cluster phase's rows, a cut of CLUSTER_PUBLISHED (printed as
+# `reduced`): each node's commit log fsyncs every write (Node's
+# commitlog_sync="batch"), about 300-400 QUORUM writes/s from one host
+# process. Not below 15,000: under that a node's compaction input (five
+# cells a row) holds less than one 65,536-cell segment, and K4 would
+# not launch
+CLUSTER_ROWS = 20_000
+# the depth of the full repair's Merkle trees, a cut of RepairService's
+# default of 10 (printed as `reduced`): the repair syncs each mismatched
+# leaf on its own, fetching that leaf's range from each replica with a
+# scan of the whole table, so its time grows as leaves x rows (at depth
+# 10, 1,000 rows missing from one of three replicas took 61 s on one
+# host core). Node 3 misses rows in every leaf, so depth 6 syncs about
+# 2 x 2^6 leaves in place of 2 x 2^10
+CLUSTER_TREE_DEPTH = 6
+CLUSTER_TREE_DEPTH_DEFAULT = 10
+CLUSTER_NODES = 3
+CLUSTER_QUORUM_READS = 2_000
+CLUSTER_ALL_READS = 500
+# seconds a replica may take to apply what its coordinator acknowledged
+CLUSTER_WAIT_S = 120.0
+
+
+class QuarterHook:
+    """The Session that stress.write drives, calling at(i) before the
+    i-th INSERT: phase 9 flushes the replicas, and stops a node, between
+    the quarters of one stress.write."""
+
+    def __init__(self, session, at):
+        self._session, self._at, self._i = session, at, 0
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+    def execute_prepared(self, qid, values):
+        self._at(self._i)
+        self._i += 1
+        return self._session.execute_prepared(qid, values)
+
+
+def stress_values(n: int, seed: int = 1, value_bytes: int = 34) -> list:
+    """The four blobs stress.write(session, n, value_bytes, seed) writes
+    for each key, drawn from the same generator in the same order."""
+    import random
+    rng = random.Random(seed)
+    return [[rng.randbytes(value_bytes) for _ in range(4)]
+            for _ in range(n)]
+
+
+def cluster_rows(node) -> int:
+    """The stress.standard1 rows node's own store holds (memtable and
+    sstables), read from its engine, not through a coordinator."""
+    batch = node.engine.store("stress", "standard1").scan_all()
+    if len(batch) == 0:
+        return 0
+    # a row's identity: every lane before the column's (the last three
+    # are the column id and the cell's path)
+    return len(np.unique(np.asarray(batch.lanes)[:, :batch.n_lanes - 3],
+                         axis=0))
+
+
+def cluster_drain(nodes, rows: int) -> None:
+    """Waits until every node in `nodes` holds `rows` rows: a QUORUM
+    write's third replica may apply it after the coordinator returned."""
+    for nd in nodes:
+        deadline = time.monotonic() + CLUSTER_WAIT_S
+        while (have := cluster_rows(nd)) != rows:
+            need(time.monotonic() < deadline,
+                 f"cluster: {nd.endpoint.name} holds {have} of {rows} rows")
+            time.sleep(0.05)
+
+
+def cluster_flush(nodes) -> None:
+    for nd in nodes:
+        nd.engine.store("stress", "standard1").flush()
+
+
+def cluster_reads(cluster, i: int, cl: str, n: int, rows: int,
+                  values: list, seed: int) -> dict:
+    """n random keys read through node i at `cl`; every key must return
+    the row stress.write wrote for it."""
+    import random
+
+    from cassandra_tpu_torch.cluster.replication import ConsistencyLevel
+    nd = cluster.node(i)
+    nd.default_cl = getattr(ConsistencyLevel, cl)
+    s = nd.session()
+    qid = s.prepare("SELECT * FROM stress.standard1 WHERE key = ?")
+    keys = random.Random(seed).sample(range(rows), n)
+    t0 = time.perf_counter()
+    for k in keys:
+        rs = s.execute_prepared(qid, (k,))
+        got = [dict(zip(rs.column_names, r)) for r in rs.rows]
+        want = {"key": k, **{f"c{j}": values[k][j] for j in range(4)}}
+        need(got == [want], f"cluster: key {k} at {cl} through node{i}: "
+                            f"{got!r:.200}")
+    dt = time.perf_counter() - t0
+    print(f"  cluster reads: {n} keys at {cl} through node{i}, every row "
+          f"as written, {dt:.3f} s ({n / dt:.1f} reads/s)", flush=True)
+    return {"n": n, "seconds": dt, "ops_s": n / dt}
+
+
+def tools_cluster(seed: int, work: str, ids: dict,
+                  rows: int | None = None) -> dict:
+    """Phase 9: LocalCluster(3, rf=3) with every node's engine on the
+    card, autocompaction off. (a) stress.write of `rows` rows through
+    node 1 at QUORUM, every live replica drained and flushed after each
+    quarter; node 3 is down, with hinted handoff off, for the last
+    quarter, then restarted. (b) a full repair from node 1 (Merkle trees
+    of CLUSTER_TREE_DEPTH, and streaming); node 3's own store then holds
+    every row, and a preview repair finds no mismatched range. (c) per
+    node, a major compaction of copies of its sstables with the native
+    engine and through CompactionTask(engine="device"), sha256-equal
+    (node 1 in the default configuration, K1-K5; nodes 2 and 3 with
+    device compress off, K1-K4 and no K5), then the same device
+    compaction of its live store, equal to the copy's. (d) reads at
+    QUORUM through node 2 and at ALL through node 3 return the rows as
+    written. The launch counters are reset just before each device
+    compaction and read just after."""
+    from cassandra_tpu_torch.cluster.node import LocalCluster
+    from cassandra_tpu_torch.cluster.replication import ConsistencyLevel
+    from cassandra_tpu_torch.compaction.task import CompactionTask
+    from cassandra_tpu_torch.ops import cuda_lib
+    from cassandra_tpu_torch.tools import nodetool, stress
+
+    rows = CLUSTER_ROWS if rows is None else rows
+    if rows != CLUSTER_PUBLISHED:
+        print(json.dumps({"reduced": {"phase": "cluster", "rows": rows,
+                                      "published": CLUSTER_PUBLISHED}}),
+              flush=True)
+    print(json.dumps({"reduced": {
+        "phase": "cluster", "merkle_depth": CLUSTER_TREE_DEPTH,
+        "default": CLUSTER_TREE_DEPTH_DEFAULT}}), flush=True)
+    secs: dict = {}
+    t_all = t0 = time.perf_counter()
+    c = LocalCluster(CLUSTER_NODES, os.path.join(work, "cluster"), rf=3,
+                     device=DEVICE)
+    try:
+        kinds = sorted({nd.engine.device.type for nd in c.nodes})
+        need(kinds == [torch.device(DEVICE).type],
+             f"cluster: the nodes' engines run on {kinds}")
+        for nd in c.nodes:
+            nodetool.disableautocompaction(nd.engine)
+        s = c.session(1)
+        # before stress.setup, which would make it at RF 1
+        s.execute("CREATE KEYSPACE stress WITH replication = "
+                  "{'class': 'SimpleStrategy', 'replication_factor': 3}")
+        for nd in c.nodes:
+            nd.default_cl = ConsistencyLevel.QUORUM
+        quarter = rows // 4
+
+        def at(i: int) -> None:
+            if i == 0 or i % quarter:
+                return
+            live = c.nodes if i <= 2 * quarter else c.nodes[:2]
+            cluster_drain(live, i)
+            cluster_flush(live)
+            if i == 3 * quarter:
+                for nd in c.nodes:
+                    nodetool.disablehandoff(nd)
+                c.stop_node(3)
+
+        w = stress.write(QuarterHook(s, at), rows)
+        cluster_drain(c.nodes[:2], rows)
+        cluster_flush(c.nodes[:2])
+        behind = cluster_rows(c.node(3))
+        need(behind == 3 * quarter,
+             f"cluster: node3 holds {behind} rows while it was down")
+        c.restart_node(3)
+        deadline = time.monotonic() + CLUSTER_WAIT_S
+        while not all(a.is_alive(b.endpoint) for a in c.nodes
+                      for b in c.nodes if a is not b):
+            need(time.monotonic() < deadline,
+                 "cluster: the nodes do not see each other after the "
+                 "restart")
+            time.sleep(0.05)
+        secs["write"] = time.perf_counter() - t0
+        print(f"  cluster write: {json.dumps(w)}; node3 down for the last "
+              f"{rows - 3 * quarter} rows (acknowledged by two replicas)",
+              flush=True)
+
+        t0 = time.perf_counter()
+        # nodetool repair --full, at the cut tree depth
+        rep = c.node(1).repair.repair_table(
+            "stress", "standard1", depth=CLUSTER_TREE_DEPTH)
+        need(rep["ranges_synced"] > 0, f"cluster: the repair synced {rep}")
+        cluster_drain([c.node(3)], rows)
+        prev = c.node(1).repair.repair_table(
+            "stress", "standard1", depth=CLUSTER_TREE_DEPTH, preview=True)
+        need(prev["ranges_mismatched"] == 0,
+             f"cluster: the preview after the repair found {prev}")
+        secs["repair"] = time.perf_counter() - t0
+        print(f"  cluster repair: {json.dumps(rep)}; node3 holds {rows} "
+              f"rows; preview {json.dumps(prev)}; {secs['repair']:.3f} s",
+              flush=True)
+
+        t0 = time.perf_counter()
+        cluster_flush(c.nodes)
+        legs = []
+        for i, nd in enumerate(c.nodes, 1):
+            kw = {} if i == 1 else {"device_compress": False}
+            must = ("K1", "K2", "K3", "K4") + (("K5",) if i == 1 else ())
+            cfs = nd.engine.store("stress", "standard1")
+            comp = tools_compaction(f"cluster-node{i}", nd.engine.data_dir,
+                                    cfs.table, work, ids, must, **kw)
+            comp["src"] = "cluster"
+            shutil.rmtree(comp.pop("root"), ignore_errors=True)
+            if i > 1:
+                need(comp["launches"]["K5"] == 0,
+                     f"cluster: K5 ran on node{i} with device compress off")
+            legs.append(comp)
+            with nd.engine.compactions.cfs_lock(cfs):
+                task = CompactionTask(cfs, cfs.live_sstables(),
+                                      engine="device", **kw)
+                cuda_lib.reset_launches()
+                t1 = time.perf_counter()
+                stats = task.execute()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                live = _kernel_launches(ids)
+                sizes = _launch_sizes(ids)
+            hashes = component_hashes(cfs.directory)
+            need(hashes == comp["hashes"],
+                 f"cluster: node{i}'s live compaction differs from its "
+                 f"copy's")
+            need(all(live[k] > 0 for k in must),
+                 f"cluster: node{i}'s live compaction launched {live}")
+            print(f"  cluster node{i} live store: {stats['cells_read']} -> "
+                  f"{stats['cells_written']} cells in {wall:.3f} s, equal "
+                  f"to its copy's; launches {live}", flush=True)
+            legs.append({"name": f"cluster-node{i}-live", "src": "cluster",
+                         "launches": live, "sizes": sizes, "wall": wall})
+        secs["compaction"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        values = stress_values(rows)
+        reads = {"QUORUM": cluster_reads(c, 2, "QUORUM",
+                                         CLUSTER_QUORUM_READS, rows, values,
+                                         seed),
+                 "ALL": cluster_reads(c, 3, "ALL", CLUSTER_ALL_READS, rows,
+                                      values, seed + 1)}
+        secs["read"] = time.perf_counter() - t0
+    finally:
+        c.shutdown()
+    secs["cluster"] = time.perf_counter() - t_all
+    print("  cluster: launches by node's compaction " + json.dumps(
+        {g["name"]: {k: v for k, v in g["launches"].items() if v}
+         for g in legs}), flush=True)
+    return {"seconds": secs, "legs": legs, "write": w, "repair": rep,
+            "reads": reads}
+
+
 def tools_child(part: str, seed: int, work: str) -> int:
-    """One process of phase 8 (`part` of TOOLS_PARTS), on the kernels
+    """One process of phase 8 or 9 (`part` of TOOLS_PARTS), on the kernels
     phase 2 built: its lines on stdout, its result as JSON in
     work/tools-<part>.json."""
     from cassandra_tpu_torch.ops import cuda_lib
@@ -2565,6 +2847,8 @@ def tools_child(part: str, seed: int, work: str) -> int:
     ids = {name: kid for kid, name in KERNEL_NAMES.items()}
     if part == "stress":
         out = tools_stress(work, STRESS_ROWS_RUN, ids)
+    elif part == "cluster":
+        out = tools_cluster(seed, work, ids)
     else:
         out = tools_harry(seed, work, ids)
     print(f"tools [{part}]: seconds " + json.dumps(
@@ -2575,10 +2859,11 @@ def tools_child(part: str, seed: int, work: str) -> int:
 
 
 def start_tools(seed: int, work: str) -> dict:
-    """Phase 8's processes (TOOLS_PARTS), each a chip_smoke.py of its own
-    with its output in work/tools-<part>.log: they run beside phases
-    4-6, so their host-bound Python shares the host's cores and not the
-    smoke's time. Each process keeps its own launch counters."""
+    """The processes of phases 8 and 9 (TOOLS_PARTS), each a
+    chip_smoke.py of its own with its output in work/tools-<part>.log:
+    they run beside phases 4-6, so their host-bound Python shares the
+    host's cores and not the smoke's time. Each process keeps its own
+    launch counters."""
     if STRESS_ROWS_RUN != STRESS_ROWS:
         print(json.dumps({"reduced": {
             "phase": "tools", "stress_rows": STRESS_ROWS_RUN,
@@ -2594,7 +2879,7 @@ def start_tools(seed: int, work: str) -> dict:
 
 
 def finish_tools(procs: dict, deadline: float) -> dict:
-    """Waits for phase 8's processes (until `deadline` on the
+    """Waits for the processes of phases 8 and 9 (until `deadline` on the
     perf_counter clock), prints their output, and fails where one
     failed; merges their legs, launch sizes and seconds."""
     out: dict = {"sizes": {}, "legs": [], "seconds": {}}
@@ -2634,7 +2919,7 @@ def finish_tools(procs: dict, deadline: float) -> dict:
 
 
 def stop_tools(procs: dict) -> None:
-    """Ends phase 8's processes that still run."""
+    """Ends the processes of phases 8 and 9 that still run."""
     for proc, log in procs.values():
         if proc.poll() is None:
             proc.kill()
@@ -2733,7 +3018,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cells-per-run", type=int, default=STCS_CELLS_PER_RUN)
     ap.add_argument("--seed", type=int, default=7)
-    # phase 8's processes (start_tools)
+    # the processes of phases 8 and 9 (start_tools)
     ap.add_argument("--tools-part", choices=TOOLS_PARTS,
                     help=argparse.SUPPRESS)
     ap.add_argument("--work", help=argparse.SUPPRESS)

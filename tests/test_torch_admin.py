@@ -189,14 +189,15 @@ def test_nodetool_compact_sstables_sha256_equal(engines):
 
 
 def test_nodetool_unported_module_raises(engines):
-    """A command whose module the port does not have yet (the cluster
-    layer's replication, for cleanup) fails at that import; nothing
-    answers in its place. (getsstables, which failed so until copyutil
-    was ported, is held to the JAX package in tests/test_torch_tools.py.)"""
+    """A command whose module the port does not have yet (sstableloader,
+    for bulkload) fails at that import; nothing answers in its place.
+    (cleanup, which failed so until the cluster layer was ported, is
+    held to the JAX package in tests/test_torch_cluster_slice.py.)"""
     import types
     _j, (teng, _ts, tt) = engines
-    with pytest.raises(ImportError, match="cluster"):
-        tt.cleanup(types.SimpleNamespace(engine=teng))
+    with pytest.raises(ImportError, match="sstableloader"):
+        tt.bulkload(types.SimpleNamespace(engine=teng), "/nonexistent",
+                    "ks", "t")
 
 
 def test_device_programs_cost_columns(tmp_path):

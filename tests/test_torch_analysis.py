@@ -26,7 +26,7 @@ from cassandra_tpu_torch.utils import lockwitness
 
 # the roots whose modules the port does not hold yet; this set shrinks
 # (and the real-tree test fails) the day one of them is ported
-ABSENT_ROOTS = {"transport.server", "cluster.gossip", "sim.scheduler"}
+ABSENT_ROOTS = {"transport.server", "sim.scheduler"}
 
 
 @pytest.fixture(autouse=True)

@@ -105,6 +105,27 @@ _PROBE = textwrap.dedent("""
     st = sharded_merge_step(make_mesh(2, device="cpu"))(
         shard_batch(b.seal(), 2)[0])[2]
     assert st.tolist() == [6, 0]
+    # the in-process cluster: a QUORUM write and read, a repair, a CAS
+    from cassandra_tpu_torch.cluster.node import LocalCluster
+    from cassandra_tpu_torch.cluster.replication import ConsistencyLevel
+    from cassandra_tpu_torch.cluster.schema_sync import SchemaSync
+    c = LocalCluster(2, tempfile.mkdtemp(), rf=2, device="cpu")
+    try:
+        for nd in c.nodes:
+            nd.default_cl = ConsistencyLevel.QUORUM
+        cs = c.session(1)
+        cs.execute("CREATE KEYSPACE cl WITH replication = "
+                   "{{'class': 'SimpleStrategy', 'replication_factor': 2}}")
+        cs.execute("CREATE TABLE cl.kv (k int PRIMARY KEY, v text)")
+        cs.execute("INSERT INTO cl.kv (k, v) VALUES (1, 'a')")
+        assert c.session(2).execute(
+            "SELECT v FROM cl.kv WHERE k = 1").rows == [("a",)]
+        assert nodetool.repair(c.node(1), "cl", "kv", full=True)
+        assert c.session(1).execute(
+            "INSERT INTO cl.kv (k, v) VALUES (2, 'b') IF NOT EXISTS").rows
+        SchemaSync(c.node(1), tempfile.mkdtemp())
+    finally:
+        c.shutdown()
     for m in ("cassandra_tpu_torch.cql.execution",
               "cassandra_tpu_torch.storage.engine",
               "cassandra_tpu_torch.storage.paging",
@@ -130,7 +151,12 @@ _PROBE = textwrap.dedent("""
               "cassandra_tpu_torch.analysis.checks.worker_loops",
               "cassandra_tpu_torch.analysis.checks.clock_discipline",
               "cassandra_tpu_torch.analysis.checks.knob_wiring",
-              "cassandra_tpu_torch.analysis.checks.loop_blocking"):
+              "cassandra_tpu_torch.analysis.checks.loop_blocking",
+              *("cassandra_tpu_torch.cluster." + m for m in (
+                  "ring", "replication", "messaging", "hints", "gossip",
+                  "coordinator", "paxos", "cms", "counters", "repair",
+                  "stream_session", "streaming", "schema_sync",
+                  "node"))):
         assert m in sys.modules, m
     bad = sorted(m for m in sys.modules
                  if (m == "cassandra_tpu" or m.startswith("cassandra_tpu."))
@@ -153,7 +179,7 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("BAD ", "N ")))
     assert lines["BAD"] == "[]"
-    assert int(lines["N"]) >= 105     # the whole port was imported
+    assert int(lines["N"]) >= 120     # the whole port was imported
 
 
 def test_entry_points_default_to_cuda(tmp_path):
@@ -185,6 +211,10 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StorageEngine(str(tmp_path / "eng"))
     assert not (tmp_path / "eng").exists()   # raised before any write
+    from cassandra_tpu_torch.cluster.node import LocalCluster
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalCluster(3, str(tmp_path / "cluster"))
+    assert not (tmp_path / "cluster").exists()
     # the CPU runs the plain versions only when asked for
     assert devmod.resolve("cpu").type == "cpu"
     h = dw.submit_merge_resident([batch], device="cpu")
