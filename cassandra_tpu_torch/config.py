@@ -219,12 +219,10 @@ class Config:
     # admission control: permits bounding in-flight (queued + executing)
     # requests — exhaustion answers OVERLOADED instead of queueing;
     # <= 0 disables the gate. Hot-reloadable.
-    # ctpulint: allow(knob-wiring, reason=transport/admission.py and transport/server.py re-read this knob; the port does not hold them yet, so nothing reads it here until the server side lands)
     native_transport_max_concurrent_requests: int = mut(256)
     # per-client request rate limit in ops/s (4.1's
     # native_transport_rate_limiting role); 0 disables. Hot-reloadable
     # like compaction_throughput_mib_per_sec.
-    # ctpulint: allow(knob-wiring, reason=transport/admission.py and transport/server.py re-read this knob; the port does not hold them yet, so nothing reads it here until the server side lands)
     native_transport_rate_limit_ops: int = mut(0)
     # prepared-statement registry LRU bound, in STATEMENTS (the
     # reference's prepared_statements_cache_size is MiB-denominated;

@@ -7,9 +7,9 @@ calls; a remote admin protocol can wrap these functions); `python -m
 cassandra_tpu_torch.tools.nodetool <cmd> --data <dir> [--device cpu]`
 drives a local engine (its kernels on `cuda` unless `--device` says
 otherwise). The cluster commands (repair, cleanup, getendpoints,
-describering, rebuild) take a `cluster.node.Node`. Commands that need
-a module the port does not have yet (sstableloader for bulkload, the
-admin protocol) raise ImportError at that module's import.
+describering, rebuild, bulkload) take a `cluster.node.Node`; `--host`
+and `--port` send a command to a running daemon's admin port
+(`service/admin.py`).
 
 Implemented commands: status, info, flush, compact, compactionstats,
 commitlogstats, tablestats, repair, cleanup, gettraces, exportmetrics,
@@ -798,7 +798,11 @@ def profiler(engine, action: str = "status",
       as-is;
     - status: sampler state + the per-program compile/dispatch/execute
       registry (the system_views.profiles / device_programs vtables
-      serve the same)."""
+      serve the same), and the hand-written kernels' launches on the
+      card since the process started, in all and by size
+      (ops/cuda_lib.py; a call on CPU tensors runs the plain version
+      and launches nothing, so `calls` can exceed `launches`)."""
+    from ..ops import cuda_lib
     from ..service import profiling as _profiling
     from ..service import sampler as _sampler
     sp = _sampler.GLOBAL
@@ -817,7 +821,11 @@ def profiler(engine, action: str = "status",
         return {**sp.stats(),
                 "retrace_budget": _profiling.GLOBAL.retrace_budget,
                 "device_programs":
-                    _profiling.GLOBAL.snapshot()["kernels"]}
+                    _profiling.GLOBAL.snapshot()["kernels"],
+                "launches": cuda_lib.launches(),
+                "launch_sizes": {
+                    name: {str(size): n for size, n in by.items()}
+                    for name, by in cuda_lib.launch_sizes().items()}}
     raise ValueError(
         f"unknown profiler action {action!r} (start|stop|dump|status)")
 

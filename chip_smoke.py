@@ -164,6 +164,38 @@ result line:
               device compaction and read just after; it prints each
               part's wall seconds, writes/s, reads/s and the launches
               of each node's compactions.
+ 10. net      in phase 9's process, after it: three daemons (python -m
+              cassandra_tpu_torch.tools.noded, each a process of its own
+              with its engine on the card), a static ring (even_tokens(3,
+              vnodes=4)) over the TCP transport, RF 3 with explicit
+              table ids, each with a native port and an admin port;
+              nodes 2 and 3 with compaction_device_compress off;
+              autocompaction off through the admin port. (a) NET_ROWS
+              stress.standard1 rows (cut from phase 9's source, printed
+              as `reduced`) written through client.Cluster at QUORUM
+              with prepared statements from NET_CONNECTIONS
+              connections, every replica drained, then `nodetool flush`
+              on every node; (b) NET_VECTORS rows of phase 5's emb
+              table written offline by this process's engine on the
+              card and streamed to every replica by `nodetool
+              bulkload`; (c) per node, compact_leg on copies of its
+              stress sstables with the native engine and through
+              CompactionTask(engine="device") (node 1 K1-K5, nodes 2
+              and 3 K1-K4 and not K5), then `nodetool compact` on the
+              daemon (its own native compaction): all three outputs
+              sha256-equal; (d) NET_QUORUM_READS keys at QUORUM over the
+              wire, each the row as written, and ANN queries at ALL
+              through node 1 (NET_ANN: k and count), ids equal to the
+              float64 oracle and the rows' vectors as loaded (the
+              server returns no scores; phase 7 holds K10 to its plain
+              version at the daemons' sizes); each daemon's launches of
+              K10 on its card (`nodetool profiler status` over its admin
+              port, beside the wrapper's `calls` in
+              system_views.device_programs, read over the wire), before
+              and after, must rise by at least the number of queries
+              (every replica served its share on its card). Every
+              daemon is stopped when the phase ends, and dies with its
+              process if that is killed (die_with_parent).
   7. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
               its partition's end pads to 2^20; the scan mask's runs of
@@ -2837,9 +2869,481 @@ def tools_cluster(seed: int, work: str, ids: dict,
             "reads": reads}
 
 
+# ------------------------------------------------------------- 10. net --
+
+# phase 9's deployment (cassandra-stress's `write n=1000000 cl=QUORUM
+# -schema replication(factor=3)`) as three daemons over sockets. The
+# rows written over the wire, a cut of CLUSTER_PUBLISHED (printed as
+# `reduced`); not below 13,108: a node's compaction input (five cells a
+# row) must hold a full 65,536-cell segment, or K4 and K5 do not launch
+NET_ROWS = 14_000
+NET_CONNECTIONS = 4
+# the emb rows bulkloaded, a cut of phase 5's ANN_ROWS (printed as
+# `reduced`): each replica applies them through its commit log, which
+# fsyncs every mutation. At 100,000 the load took 194.9 s alone on the
+# card's host (513 rows/s), past the room phase 9's process has beside
+# phases 4-6, so it runs at its floor
+NET_VECTORS = 20_000
+NET_QUORUM_READS = 1_000
+NET_ANN = ((10, 20), (100, 2))            # (k, queries) at ALL
+NET_READY_S = 120.0
+PR_SET_PDEATHSIG = 1                      # <linux/prctl.h>
+NET_BULKLOAD_TIMEOUT_S = 600.0
+NET_KS = "stress"
+NET_IDS = {"standard1": "5d3c9a60-0000-4000-8000-00000000a001",
+           "emb": "5d3c9a60-0000-4000-8000-00000000a002"}
+NET_DDL = [
+    f"CREATE KEYSPACE {NET_KS} WITH replication = {{'class': "
+    "'SimpleStrategy', 'replication_factor': 3}",
+    f"CREATE TABLE {NET_KS}.standard1 (key int PRIMARY KEY, c0 blob, "
+    f"c1 blob, c2 blob, c3 blob) WITH id = {NET_IDS['standard1']}",
+    f"CREATE TABLE {NET_KS}.emb (id int, c int, v vector<float, "
+    f"{ANN_DIM}>, PRIMARY KEY (id, c)) WITH id = {NET_IDS['emb']}",
+    f"CREATE CUSTOM INDEX ON {NET_KS}.emb (v) USING 'SAI'",
+]
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+def die_with_parent():
+    """A `preexec_fn` for the smoke's child processes (phases 8-10's and
+    the daemons): the child asks the kernel for SIGKILL when the thread
+    that started it ends (Linux's PR_SET_PDEATHSIG), so that none
+    outlives a smoke or a tools process killed past its `finally`. A
+    child whose parent ended before the call exits at once. Start the
+    children from the thread that lives longest: the main one."""
+    import ctypes
+    import signal
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    parent = os.getpid()
+
+    def preexec() -> None:
+        if libc.prctl(PR_SET_PDEATHSIG, signal.SIGKILL) != 0 \
+                or os.getppid() != parent:
+            os._exit(1)
+    return preexec
+
+
+class Daemon:
+    """One `python -m cassandra_tpu_torch.tools.noded cfg.json` process,
+    its output in a log file; `ready()` waits for its READY line. It
+    dies with the process that started it (die_with_parent)."""
+
+    def __init__(self, name: str, cfg: dict, work: str):
+        self.name, self.cfg = name, cfg
+        path = os.path.join(work, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        self.log_path = os.path.join(work, f"{name}.log")
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "cassandra_tpu_torch.tools.noded", path],
+            cwd=REPO, stdout=self.log, stderr=subprocess.STDOUT,
+            preexec_fn=die_with_parent())
+        self.native = self.admin = None
+
+    def tail(self, n: int = 3) -> str:
+        with open(self.log_path) as f:
+            return " | ".join(f.read().strip().splitlines()[-n:])
+
+    def ready(self, deadline: float) -> None:
+        while True:
+            with open(self.log_path) as f:
+                line = next((ln for ln in f if ln.startswith("READY")), None)
+            if line is not None:
+                w = line.split()
+                self.native = int(w[w.index("NATIVE") + 1])
+                self.admin = int(w[w.index("ADMIN") + 1])
+                return
+            need(self.proc.poll() is None,
+                 f"net: {self.name} exited with {self.proc.returncode}: "
+                 f"{self.tail()}")
+            need(time.monotonic() < deadline,
+                 f"net: {self.name} printed no READY line: {self.tail()}")
+            time.sleep(0.1)
+
+    def call(self, cmd: str, args: dict | None = None,
+             timeout: float = 30.0):
+        from cassandra_tpu_torch.service.admin import admin_call
+        return admin_call("127.0.0.1", self.admin, cmd, args,
+                          timeout=timeout)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def start_daemons(work: str, n: int = CLUSTER_NODES) -> list:
+    """n daemons on a static ring over TCP, RF 3 by their DDL; node 1
+    in the default configuration, the others with device compress
+    off. Their engines run on DEVICE (no `device` key: `cuda`)."""
+    from cassandra_tpu_torch.cluster.ring import even_tokens
+
+    ports = free_ports(n)
+    tokens = even_tokens(n, vnodes=4)
+    names = [f"node{i + 1}" for i in range(n)]
+
+    def peer(i):
+        return {"name": names[i], "host": "127.0.0.1", "port": ports[i],
+                "tokens": tokens[i]}
+    daemons = []
+    for i in range(n):
+        cfg = {**peer(i), "data_dir": os.path.join(work, "net", names[i]),
+               "peers": [peer(j) for j in range(n) if j != i],
+               "seeds": [names[0]], "gossip_interval": 0.2,
+               "native_port": 0, "admin_port": 0, "ddl": NET_DDL}
+        # a daemon coordinates at its configured level (the level a
+        # request declares only tags its metrics): node 1, the ANN
+        # coordinator, at ALL, nodes 2 and 3, which take the wire's
+        # writes and reads, at QUORUM
+        cfg["consistency"] = "ALL" if i == 0 else "QUORUM"
+        if i > 0:
+            cfg["config"] = {"compaction_device_compress": False}
+        if DEVICE != "cuda":
+            cfg["device"] = DEVICE
+        daemons.append(Daemon(names[i], cfg, work))
+    return daemons
+
+
+def net_table_dir(daemon: Daemon, table: str) -> str:
+    return os.path.join(daemon.cfg["data_dir"], NET_KS,
+                        f"{table}-{NET_IDS[table].replace('-', '')[:8]}")
+
+
+def net_drain(daemons: list, table: str, writes: int) -> None:
+    """Waits until every daemon's table has applied `writes` mutations
+    (tablestats `writes`): a QUORUM write's third replica may apply it
+    after the coordinator answered."""
+    for d in daemons:
+        deadline = time.monotonic() + CLUSTER_WAIT_S
+        while (have := d.call("tablestats", {"keyspace": NET_KS})[
+                f"{NET_KS}.{table}"]["writes"]) < writes:
+            need(time.monotonic() < deadline,
+                 f"net: {d.name} applied {have} of {writes} writes")
+            time.sleep(0.1)
+
+
+def net_k10(daemons: list) -> dict:
+    """Each daemon's K10 counts: the wrapper's `calls` (the profiling
+    registry, read over its native port from
+    system_views.device_programs) and the kernel's launches on its card,
+    in all and by matrix rows (cuda_lib's counters, read over its admin
+    port through `nodetool profiler status`)."""
+    from cassandra_tpu_torch.client import Cluster
+    name = KERNEL_NAMES["K10"]
+    out = {}
+    for d in daemons:
+        s = Cluster("127.0.0.1", d.native).connect()
+        try:
+            rows = s.execute("SELECT name, calls FROM "
+                             "system_views.device_programs").rows
+        finally:
+            s.close()
+        st = d.call("profiler", {"action": "status"})
+        out[d.name] = {
+            "calls": dict(rows).get(name, 0),
+            "launches": st["launches"][name],
+            "sizes": {int(n): c
+                      for n, c in st["launch_sizes"][name].items()}}
+    return out
+
+
+def net_write(daemons: list, table, rows: int) -> dict:
+    """stress.write's rows (stress_values) through NET_CONNECTIONS
+    client connections, spread over the daemons coordinating at QUORUM
+    (nodes 2 and 3), with a prepared INSERT; each connection writes
+    every NET_CONNECTIONS-th key."""
+    import threading
+
+    from cassandra_tpu_torch.client import Cluster, serialize_params
+    values = stress_values(rows)
+    cols = ["key", "c0", "c1", "c2", "c3"]
+    errors: list = []
+
+    def one(c: int) -> None:
+        try:
+            d = daemons[1 + c % (len(daemons) - 1)]
+            s = Cluster("127.0.0.1", d.native).connect()
+            try:
+                qid = s.prepare(f"INSERT INTO {NET_KS}.standard1 "
+                                "(key, c0, c1, c2, c3) VALUES "
+                                "(?, ?, ?, ?, ?)")
+                for k in range(c, rows, NET_CONNECTIONS):
+                    s.execute_prepared(qid, serialize_params(
+                        table, cols, [k, *values[k]]), consistency="QUORUM")
+            finally:
+                s.close()
+        except Exception as e:       # raised below, in the smoke's thread
+            errors.append(f"connection {c}: {type(e).__name__}: {e}")
+    threads = [threading.Thread(target=one, args=(c,))
+               for c in range(NET_CONNECTIONS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    need(not errors, f"net: the wire writes failed: {errors[:2]}")
+    return {"n": rows, "seconds": dt, "ops_s": rows / dt,
+            "connections": NET_CONNECTIONS}
+
+
+def net_reads(daemon: Daemon, table, rows: int, n: int, seed: int) -> dict:
+    """n random keys at QUORUM through `daemon`'s native port with a
+    prepared SELECT: each must return the row as written."""
+    import random
+
+    from cassandra_tpu_torch.client import Cluster, serialize_params
+    values = stress_values(rows)
+    keys = random.Random(seed).sample(range(rows), n)
+    s = Cluster("127.0.0.1", daemon.native).connect()
+    try:
+        qid = s.prepare(f"SELECT key, c0, c1, c2, c3 FROM {NET_KS}."
+                        "standard1 WHERE key = ?")
+        t0 = time.perf_counter()
+        for k in keys:
+            got = s.execute_prepared(qid, serialize_params(
+                table, ["key"], [k]), consistency="QUORUM").rows
+            need(got == [(k, *values[k])],
+                 f"net: key {k} at QUORUM through {daemon.name}: "
+                 f"{got!r:.200}")
+        dt = time.perf_counter() - t0
+    finally:
+        s.close()
+    return {"n": n, "seconds": dt, "ops_s": n / dt}
+
+
+def net_bulkload(daemons: list, eng, seed: int) -> tuple:
+    """NET_VECTORS gaussian emb rows written offline by `eng`, an engine
+    of this process on DEVICE holding the daemons' tables, as SCAN_RUNS
+    sstables, then streamed to every replica by `nodetool bulkload`
+    through node 1's admin port. Returns (the float32 matrix, the load's
+    answer, seconds)."""
+    rng = np.random.default_rng(seed + 10)
+    m = rng.standard_normal((NET_VECTORS, ANN_DIM)).astype(np.float32)
+    t0 = time.perf_counter()
+    cfs = eng.store(NET_KS, "emb")
+    write_int_runs(cfs, np.arange(NET_VECTORS, dtype=np.int64),
+                   np.zeros(NET_VECTORS, np.int64),
+                   m.astype(">f4").view(np.uint8).reshape(NET_VECTORS, -1),
+                   SCAN_RUNS, 1_000)
+    directory = cfs.directory
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = daemons[0].call("bulkload", {"directory": directory,
+                                       "keyspace": NET_KS, "table": "emb"},
+                          timeout=NET_BULKLOAD_TIMEOUT_S)
+    t_load = time.perf_counter() - t0
+    need(out["sstables"] == SCAN_RUNS and out["partitions"] == NET_VECTORS,
+         f"net: bulkload answered {out}")
+    return m, out, {"offline_write": t_write, "bulkload": t_load}
+
+
+def net_ann(daemon: Daemon, m: np.ndarray, seed: int) -> dict:
+    """NET_ANN's queries at ALL through `daemon`: ids equal to the float64
+    oracle, whose k-th and (k+1)-th scores lie further apart than
+    ANN_TOL, and each returned row's vector, as it came over the wire,
+    the loaded one. The server returns no scores, so over CQL the ids
+    are K10's check, as in phase 5's CQL path."""
+    from cassandra_tpu_torch.client import Cluster
+    m64 = m.astype(np.float64)
+    rng = np.random.default_rng(seed + 11)
+    tol = ANN_TOL["cosine"]
+    ms = []
+    s = Cluster("127.0.0.1", daemon.native).connect()
+    try:
+        for k, count in NET_ANN:
+            for _ in range(count):
+                q = rng.standard_normal(ANN_DIM).astype(np.float32)
+                lit = "[" + ", ".join(repr(float(x)) for x in q) + "]"
+                t0 = time.perf_counter()
+                rows = s.execute(f"SELECT id, v FROM {NET_KS}.emb ORDER BY "
+                                 f"v ANN OF {lit} LIMIT {k}",
+                                 consistency="ALL").rows
+                ms.append((time.perf_counter() - t0) * 1e3)
+                o_idx, o_s, nxt = ann_oracle(m64, q, k, "cosine")
+                need(float(o_s[-1] - nxt) > tol,
+                     f"net: ANN k={k}: the oracle's k-th and (k+1)-th "
+                     f"scores {o_s[-1]} and {nxt} lie within {tol}")
+                need([r[0] for r in rows] == o_idx.tolist(),
+                     f"net: ANN k={k} ids differ from the oracle")
+                # the server sends a vector as the text of its floats
+                got = np.array([json.loads(r[1]) for r in rows],
+                               dtype=np.float64)
+                need(np.array_equal(got, m64[o_idx]),
+                     f"net: ANN k={k}: a row's vector differs from the "
+                     "loaded one")
+    finally:
+        s.close()
+    return {"ms": ms, "queries": len(ms)}
+
+
+def tools_net(seed: int, work: str, ids: dict,
+              rows: int = NET_ROWS) -> dict:
+    """Phase 10 (in phase 9's process, after it)."""
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+
+    print(json.dumps({"reduced": {"phase": "net", "rows": rows,
+                                  "published": CLUSTER_PUBLISHED}}),
+          flush=True)
+    print(json.dumps({"reduced": {"phase": "net", "vectors": NET_VECTORS,
+                                  "published": ANN_ROWS}}), flush=True)
+    secs: dict = {}
+    legs: list = []
+    t_all = t0 = time.perf_counter()
+    # this process's engine: the daemons' tables (their DDL, their ids)
+    # for the client's bind values and the compactions of the copies,
+    # and the bulkload's offline writer
+    eng = StorageEngine(os.path.join(work, "net-offline"), Schema(),
+                        device=DEVICE)
+    daemons: list = []
+    try:
+        s = Session(eng)
+        for q in NET_DDL[:3]:
+            s.execute(q)
+        table = eng.schema.get_table(NET_KS, "standard1")
+        daemons = start_daemons(work)
+        deadline = time.monotonic() + NET_READY_S
+        for d in daemons:
+            d.ready(deadline)
+        for d in daemons:
+            d.call("disableautocompaction")
+        while not all(e["status"] == "UN" for d in daemons
+                      for e in d.call("status")):
+            need(time.monotonic() < deadline,
+                 "net: the daemons do not see each other alive")
+            time.sleep(0.1)
+        secs["net_start"] = time.perf_counter() - t0
+        print(f"  net start: {len(daemons)} daemons ready and alive to "
+              f"each other in {secs['net_start']:.3f} s (native ports "
+              f"{[d.native for d in daemons]}, admin ports "
+              f"{[d.admin for d in daemons]})", flush=True)
+
+        t0 = time.perf_counter()
+        w = net_write(daemons, table, rows)
+        net_drain(daemons, "standard1", rows)
+        flushed = [d.call("flush", {"keyspace": NET_KS,
+                                    "table": "standard1"})
+                   for d in daemons]
+        secs["net_write"] = time.perf_counter() - t0
+        print(f"  net write: {rows} rows at QUORUM over {NET_CONNECTIONS} "
+              f"connections in {w['seconds']:.3f} s ({w['ops_s']:.1f} "
+              f"writes/s); every replica drained and flushed "
+              f"({flushed}) in {secs['net_write']:.3f} s", flush=True)
+
+        t0 = time.perf_counter()
+        m, load, ls = net_bulkload(daemons, eng, seed)
+        for d in daemons:
+            d.call("flush", {"keyspace": NET_KS, "table": "emb"})
+        secs["net_bulkload"] = time.perf_counter() - t0
+        print(f"  net bulkload: {NET_VECTORS} x {ANN_DIM} float32 written "
+              f"offline in {ls['offline_write']:.3f} s, streamed to every "
+              f"replica in {ls['bulkload']:.3f} s ({json.dumps(load)}), "
+              f"flushed; {secs['net_bulkload']:.3f} s", flush=True)
+
+        t0 = time.perf_counter()
+        for i, d in enumerate(daemons, 1):
+            kw = {} if i == 1 else {"device_compress": False}
+            must = ("K1", "K2", "K3", "K4") + (("K5",) if i == 1 else ())
+            stage = os.path.join(work, f"net-node{i}-src")
+            src = net_table_dir(d, "standard1")
+            shutil.copytree(src, os.path.join(
+                stage, NET_KS, os.path.basename(src)))
+            comp = tools_compaction(f"net-node{i}", stage, table, work, ids,
+                                    must, **kw)
+            comp["src"] = "net"
+            shutil.rmtree(comp.pop("root"), ignore_errors=True)
+            shutil.rmtree(stage, ignore_errors=True)
+            if i > 1:
+                need(comp["launches"]["K5"] == 0,
+                     f"net: K5 ran on node{i}'s copy with device compress "
+                     "off")
+            legs.append(comp)
+            t1 = time.perf_counter()
+            got = d.call("compact", {"keyspace": NET_KS,
+                                     "table": "standard1"},
+                         timeout=CLUSTER_WAIT_S)
+            wall = time.perf_counter() - t1
+            hashes = component_hashes(src)
+            need(hashes == comp["hashes"],
+                 f"net: node{i}'s own compaction differs from the copies' "
+                 f"({sorted(hashes)} against {sorted(comp['hashes'])})")
+            print(f"  net node{i} `nodetool compact`: "
+                  f"{got[0]['cells_read']} -> {got[0]['cells_written']} "
+                  f"cells in {wall:.3f} s, sha256 equal to the copies' "
+                  f"native and device outputs", flush=True)
+        secs["net_compaction"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        r = net_reads(daemons[1], table, rows, NET_QUORUM_READS, seed)
+        secs["net_read"] = time.perf_counter() - t0
+        print(f"  net reads: {r['n']} keys at QUORUM through node2's "
+              f"native port, every row as written, {r['seconds']:.3f} s "
+              f"({r['ops_s']:.1f} reads/s)", flush=True)
+
+        t0 = time.perf_counter()
+        before = net_k10(daemons)
+        ann = net_ann(daemons[0], m, seed)
+        after = net_k10(daemons)
+        secs["net_ann"] = time.perf_counter() - t0
+        calls = {n: after[n]["calls"] - before[n]["calls"] for n in after}
+        launched = {n: after[n]["launches"] - before[n]["launches"]
+                    for n in after}
+        sizes: dict = {}
+        for n, a in after.items():
+            for size, c in a["sizes"].items():
+                c -= before[n]["sizes"].get(size, 0)
+                if c:
+                    sizes[size] = sizes.get(size, 0) + c
+        need(all(c >= ann["queries"] for c in launched.values()),
+             f"net: K10 launches rose by {launched} (calls by {calls}) "
+             f"for {ann['queries']} queries: a replica did not serve its "
+             "share on its card")
+        print(f"  net ann: {ann['queries']} queries at ALL through node1 "
+              f"({json.dumps(dict(NET_ANN))} by k), ids equal to the "
+              f"float64 oracle; ms a query: first {ann['ms'][0]:.1f}, "
+              f"rest {json.dumps([round(x, 1) for x in ann['ms'][1:]])}; "
+              f"each daemon's K10 launches rose by {json.dumps(launched)} "
+              f"(wrapper calls by {json.dumps(calls)}), by matrix rows "
+              f"{json.dumps(sizes)}", flush=True)
+        legs.append({"name": "net-ann", "src": "net daemons",
+                     "launches": {"K10": sum(launched.values())},
+                     "sizes": {"K10": sizes},
+                     "calls": calls, "launched": launched})
+    finally:
+        for d in daemons:
+            d.stop()
+        eng.close()
+    secs["net"] = time.perf_counter() - t_all
+    print("  net: launches by leg " + json.dumps(
+        {g["name"]: {k: v for k, v in g["launches"].items() if v}
+         for g in legs}), flush=True)
+    return {"seconds": secs, "legs": legs, "write": w, "reads": r,
+            "ann": ann, "bulkload": load}
+
+
 def tools_child(part: str, seed: int, work: str) -> int:
-    """One process of phase 8 or 9 (`part` of TOOLS_PARTS), on the kernels
-    phase 2 built: its lines on stdout, its result as JSON in
+    """One process of phase 8 or 9 (`part` of TOOLS_PARTS; phase 9's
+    process runs phase 10 after it), on the kernels phase 2 built, or
+    phase 10 alone (`net`): its lines on stdout, its result as JSON in
     work/tools-<part>.json."""
     from cassandra_tpu_torch.ops import cuda_lib
 
@@ -2847,8 +3351,14 @@ def tools_child(part: str, seed: int, work: str) -> int:
     ids = {name: kid for kid, name in KERNEL_NAMES.items()}
     if part == "stress":
         out = tools_stress(work, STRESS_ROWS_RUN, ids)
+    elif part == "net":                 # phase 10 alone
+        out = tools_net(seed, work, ids)
     elif part == "cluster":
         out = tools_cluster(seed, work, ids)
+        net = tools_net(seed, work, ids)
+        out["seconds"].update(net["seconds"])
+        out["legs"] += net["legs"]
+        out["net"] = net
     else:
         out = tools_harry(seed, work, ids)
     print(f"tools [{part}]: seconds " + json.dumps(
@@ -2873,8 +3383,9 @@ def start_tools(seed: int, work: str) -> dict:
         log = open(os.path.join(work, f"tools-{part}.log"), "w")
         cmd = [sys.executable, os.path.abspath(__file__), "--tools-part",
                part, "--work", work, "--seed", str(seed)]
-        procs[part] = (subprocess.Popen(cmd, stdout=log,
-                                        stderr=subprocess.STDOUT), log)
+        procs[part] = (subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=die_with_parent()), log)
     return procs
 
 
@@ -2919,7 +3430,8 @@ def finish_tools(procs: dict, deadline: float) -> dict:
 
 
 def stop_tools(procs: dict) -> None:
-    """Ends the processes of phases 8 and 9 that still run."""
+    """Ends the processes of phases 8 and 9 that still run; phase 10's
+    daemons die with theirs (die_with_parent)."""
     for proc, log in procs.values():
         if proc.poll() is None:
             proc.kill()
@@ -3019,7 +3531,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cells-per-run", type=int, default=STCS_CELLS_PER_RUN)
     ap.add_argument("--seed", type=int, default=7)
     # the processes of phases 8 and 9 (start_tools)
-    ap.add_argument("--tools-part", choices=TOOLS_PARTS,
+    ap.add_argument("--tools-part", choices=TOOLS_PARTS + ("net",),
                     help=argparse.SUPPRESS)
     ap.add_argument("--work", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

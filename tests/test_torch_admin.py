@@ -188,16 +188,76 @@ def test_nodetool_compact_sstables_sha256_equal(engines):
     assert ts.execute(q).rows == js.execute(q).rows
 
 
-def test_nodetool_unported_module_raises(engines):
-    """A command whose module the port does not have yet (sstableloader,
-    for bulkload) fails at that import; nothing answers in its place.
-    (cleanup, which failed so until the cluster layer was ported, is
-    held to the JAX package in tests/test_torch_cluster_slice.py.)"""
-    import types
-    _j, (teng, _ts, tt) = engines
-    with pytest.raises(ImportError, match="sstableloader"):
-        tt.bulkload(types.SimpleNamespace(engine=teng), "/nonexistent",
-                    "ks", "t")
+def _bulkload(pkg, base: str) -> dict:
+    """tests/test_bulkload.py's scenario in one package: offline sstables
+    written by the package's SSTableWriter, `nodetool bulkload` through
+    node 1 of a 3-node RF 2 cluster; the load's answer and each node's
+    own cells."""
+    import numpy as np
+    cluster = pkg["LocalCluster"](3, os.path.join(base, "cluster"))
+    try:
+        s = cluster.session(1)
+        s.execute("CREATE KEYSPACE ks WITH replication = {'class': "
+                  "'SimpleStrategy', 'replication_factor': 2}")
+        s.execute("CREATE TABLE ks.t (id int, c int, v text, "
+                  "PRIMARY KEY (id, c)) WITH id = "
+                  "5d3c9a60-0000-4000-8000-000000000003")
+        table = cluster.node(1).schema.get_table("ks", "t")
+        rng = np.random.default_rng(3)
+        n = 500
+        batch = pkg["cb"].merge_sorted([pkg["bulk"].build_int_batch(
+            table, rng.integers(0, 64, n), rng.integers(0, 1000, n),
+            rng.integers(97, 122, (n, 8), dtype=np.uint8),
+            rng.integers(1, 1 << 30, n).astype(np.int64))])
+        outdir = os.path.join(base, "external")
+        os.makedirs(outdir)
+        sst = pkg["sst"]
+        for gen, (a, b) in enumerate(((0, len(batch) // 2),
+                                      (len(batch) // 2, len(batch))), 1):
+            w = sst.SSTableWriter(sst.Descriptor(outdir, gen), table)
+            w.append(batch.slice_range(a, b))
+            w.finish()
+        out = pkg["tool"].run_command("bulkload", node=cluster.node(1),
+                                      directory=outdir, keyspace="ks",
+                                      table="t")
+        cells = []
+        for nd in cluster.nodes:
+            b = nd.engine.store("ks", "t").scan_all()
+            cells.append({k: np.asarray(getattr(b, k)).tobytes()
+                          for k in ("lanes", "ts", "ttl", "flags", "off",
+                                    "payload")})
+        return {"out": out, "cells": cells, "batch": len(batch)}
+    finally:
+        cluster.shutdown()
+
+
+def test_nodetool_bulkload_equals_jax(tmp_path):
+    """`nodetool bulkload` (tools/sstableloader.py, ported with the
+    networked stack) streams an offline directory to every replica: the
+    same answer and the same cells on every node as the JAX package's.
+    (Until then the command failed at the sstableloader import.)"""
+    from cassandra_tpu.cluster.node import LocalCluster as JCluster
+    from cassandra_tpu.storage import cellbatch as j_cb
+    from cassandra_tpu.storage import sstable as j_sst
+    from cassandra_tpu.tools import bulk as j_bulk
+
+    from cassandra_tpu_torch.cluster.node import LocalCluster as TCluster
+    from cassandra_tpu_torch.storage import cellbatch as t_cb
+    from cassandra_tpu_torch.storage import sstable as t_sst
+    from cassandra_tpu_torch.tools import bulk as t_bulk
+
+    j = _bulkload({"LocalCluster": lambda n, d: JCluster(n, d, rf=2),
+                   "cb": j_cb, "sst": j_sst, "bulk": j_bulk,
+                   "tool": jtool}, str(tmp_path / "jax"))
+    t = _bulkload({"LocalCluster": lambda n, d: TCluster(n, d, rf=2,
+                                                         device="cpu"),
+                   "cb": t_cb, "sst": t_sst, "bulk": t_bulk,
+                   "tool": ttool}, str(tmp_path / "port"))
+    assert t["out"] == j["out"]
+    assert t["out"]["sstables"] == 2 and t["out"]["cells"] == t["batch"]
+    assert t["cells"] == j["cells"]
+    # RF 2 on three nodes: every cell on two of them
+    assert sum(len(c["ts"]) for c in t["cells"]) == 2 * 8 * t["batch"]
 
 
 def test_device_programs_cost_columns(tmp_path):

@@ -5,8 +5,8 @@ The fixture tests of tests/test_static_analysis.py, run through the
 port's checks; the same `from_sources` fixtures given to the JAX
 package's checks and the port's, which must report the same violations
 apart from the package prefix; and the port's real tree, which must be
-clean, with every suppression reasoned and used, and with exactly the
-roots that are not ported yet reported absent."""
+clean, with every suppression reasoned and used, and with every check's
+root present."""
 import subprocess
 import sys
 import threading
@@ -23,10 +23,12 @@ from cassandra_tpu_torch.analysis.report import (Violation,
                                                  reasonless)
 from cassandra_tpu_torch.analysis.walker import REPO, ProjectIndex
 from cassandra_tpu_torch.utils import lockwitness
+from torch_tmp import tmp_path  # noqa: F401
 
-# the roots whose modules the port does not hold yet; this set shrinks
-# (and the real-tree test fails) the day one of them is ported
-ABSENT_ROOTS = {"transport.server", "sim.scheduler"}
+# the roots whose modules the port does not hold: none since the
+# networked stack and the simulator landed, so the real tree must report
+# every check's root present
+ABSENT_ROOTS = set()
 
 
 @pytest.fixture(autouse=True)
@@ -551,6 +553,12 @@ def test_entry_point_exit_codes(capsys):
     assert run_ast_checks(index=ProjectIndex.build()) == 0
     out = capsys.readouterr().out
     assert "0 violations" in out
+    assert "roots not in the tree" not in out   # every root is ported
+    # a tree without the checks' roots names them in its note
+    assert run_ast_checks(index=ProjectIndex.from_sources(
+        {"fix/mod.py": "X = 1\n"})) == 0
+    out = capsys.readouterr().out
+    assert "roots not in the tree" in out
     assert "cassandra_tpu_torch.transport.server" in out
     assert run_ast_checks(index=ProjectIndex.from_sources(
         {"fix/mod.py": AB_BA})) == 1
@@ -612,3 +620,25 @@ def test_sort_passes_do_not_leak_across_a_reset():
         assert cuda_lib.passes()[name] == 7
     finally:
         cuda_lib.reset_launches()
+
+
+# ------------------------------------------------ the witness under sim --
+
+def test_witness_under_sim_deterministic(tmp_path):
+    """tests/test_static_analysis.py's counterpart: the armed witness
+    inside the port's simulated(seed): same seed -> identical event
+    trace, no witness raise, armed state restored after."""
+    from cassandra_tpu_torch.sim.scheduler import SimCluster, simulated
+
+    traces = []
+    for run in range(2):
+        with simulated(seed=1234) as sched:
+            assert lockwitness.armed()
+            cluster = SimCluster(sched, str(tmp_path / f"r{run}"), n=2,
+                                 gossip_interval=0.25, device="cpu")
+            sched.run(3.0)
+            traces.append(list(sched.trace))
+            cluster.shutdown()
+        assert not lockwitness.armed()
+        lockwitness.reset()
+    assert traces[0] and traces[0] == traces[1]

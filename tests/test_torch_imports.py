@@ -19,6 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None          # any `import jax` now fails
+    sys.modules["cassandra_tpu"] = None   # and any import of the JAX
+                                          # package
     sys.path.insert(0, {repo!r})
     import cassandra_tpu_torch
     for m in pkgutil.walk_packages(cassandra_tpu_torch.__path__,
@@ -126,6 +128,44 @@ _PROBE = textwrap.dedent("""
         SchemaSync(c.node(1), tempfile.mkdtemp())
     finally:
         c.shutdown()
+    # the simulator patches the port's cluster modules, and only those,
+    # for the scope of simulated(seed)
+    import time as real_time
+    from cassandra_tpu_torch.cluster import node as cluster_node
+    from cassandra_tpu_torch.sim import scheduler
+    from cassandra_tpu_torch.sim import SimCluster, simulated
+    assert all(m.startswith("cassandra_tpu_torch.cluster.")
+               for m in scheduler._PATCH_MODULES)
+    with simulated(5) as sched:
+        assert cluster_node.time is not real_time
+        sc = SimCluster(sched, tempfile.mkdtemp(), n=2, device="cpu")
+        sched.run(1.0)
+        assert sched.trace
+        sc.shutdown()
+    assert cluster_node.time is real_time
+    # the networked stack: a daemon's node behind a CQL server and an
+    # admin endpoint, a client session over the native protocol
+    from cassandra_tpu_torch.client import Cluster
+    from cassandra_tpu_torch.service.admin import AdminServer, admin_call
+    from cassandra_tpu_torch.tools import noded
+    from cassandra_tpu_torch.transport import CQLServer
+    dn, _tr = noded.build_node({{
+        "name": "n1", "port": 0, "tokens": [0], "device": "cpu",
+        "data_dir": tempfile.mkdtemp(),
+        "ddl": ["CREATE KEYSPACE nk WITH replication = {{'class': "
+                "'SimpleStrategy', 'replication_factor': 1}}",
+                "CREATE TABLE nk.t (k int PRIMARY KEY, v int)"]}})
+    srv, adm = CQLServer(dn), AdminServer(dn)
+    try:
+        cs = Cluster("127.0.0.1", srv.port).connect()
+        cs.execute("INSERT INTO nk.t (k, v) VALUES (1, 2)")
+        assert cs.execute("SELECT v FROM nk.t WHERE k = 1").rows == [(2,)]
+        cs.close()
+        assert admin_call("127.0.0.1", adm.port, "flush") == 1
+    finally:
+        srv.close()
+        adm.close()
+        dn.shutdown()
     for m in ("cassandra_tpu_torch.cql.execution",
               "cassandra_tpu_torch.storage.engine",
               "cassandra_tpu_torch.storage.paging",
@@ -156,7 +196,16 @@ _PROBE = textwrap.dedent("""
                   "ring", "replication", "messaging", "hints", "gossip",
                   "coordinator", "paxos", "cms", "counters", "repair",
                   "stream_session", "streaming", "schema_sync",
-                  "node"))):
+                  "node", "wire", "tls", "tcp", "snitch")),
+              "cassandra_tpu_torch.transport.admission",
+              "cassandra_tpu_torch.transport.server",
+              "cassandra_tpu_torch.transport_server",
+              "cassandra_tpu_torch.client",
+              "cassandra_tpu_torch.service.admin",
+              "cassandra_tpu_torch.tools.sstableloader",
+              "cassandra_tpu_torch.tools.noded",
+              "cassandra_tpu_torch.sim",
+              "cassandra_tpu_torch.sim.scheduler"):
         assert m in sys.modules, m
     bad = sorted(m for m in sys.modules
                  if (m == "cassandra_tpu" or m.startswith("cassandra_tpu."))
@@ -179,7 +228,7 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("BAD ", "N ")))
     assert lines["BAD"] == "[]"
-    assert int(lines["N"]) >= 120     # the whole port was imported
+    assert int(lines["N"]) >= 135     # the whole port was imported
 
 
 def test_entry_points_default_to_cuda(tmp_path):
@@ -215,6 +264,11 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LocalCluster(3, str(tmp_path / "cluster"))
     assert not (tmp_path / "cluster").exists()
+    from cassandra_tpu_torch.sim import SimCluster, simulated
+    with simulated(1) as sched:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SimCluster(sched, str(tmp_path / "sim"))
+    assert not (tmp_path / "sim").exists()
     # the CPU runs the plain versions only when asked for
     assert devmod.resolve("cpu").type == "cpu"
     h = dw.submit_merge_resident([batch], device="cpu")
