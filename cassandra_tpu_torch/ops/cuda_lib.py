@@ -59,6 +59,10 @@ _LAST_SORT: dict[str, tuple] = {}
 # and reads them after it adds nothing to the new counts
 _EPOCH = [0]
 _count_lock = threading.Lock()
+# the copies between host and card at the port's transfer points
+# (ops/merge.py host_to_device and device_to_host, ops/device_write.py
+# _pull): direction -> [copies, bytes]
+TRANSFERS: dict[str, list] = {"h2d": [0, 0], "d2h": [0, 0]}
 
 _lock = threading.Lock()
 _lib = None
@@ -114,6 +118,27 @@ def _read(rec) -> int:
     host, ev = rec
     ev.synchronize()
     return int(host[0])
+
+
+def count_transfer(direction: str, nbytes: int) -> None:
+    """One copy of `nbytes` between host and card ("h2d" or "d2h")."""
+    with _count_lock:
+        rec = TRANSFERS[direction]
+        rec[0] += 1
+        rec[1] += int(nbytes)
+
+
+def transfers() -> dict[str, dict[str, int]]:
+    """{direction: {"copies", "bytes"}} since the last reset."""
+    with _count_lock:
+        return {k: {"copies": v[0], "bytes": v[1]}
+                for k, v in TRANSFERS.items()}
+
+
+def reset_transfers() -> None:
+    with _count_lock:
+        for rec in TRANSFERS.values():
+            rec[0] = rec[1] = 0
 
 
 def reset_launches() -> None:

@@ -412,7 +412,7 @@ def _stats_tuple(v) -> tuple[int, int, int, int, int]:
 def meta_stats(st) -> tuple[int, int, int, int, int]:
     """(ts_min, ts_max, ldt_min, ldt_max, tombstones) from the stats
     tensor of `meta_block_kernel` (one device-to-host copy)."""
-    return _stats_tuple(st.cpu().tolist())
+    return _stats_tuple(dmerge.device_to_host(st).tolist())
 
 
 def stats_of_block(block: np.ndarray, n: int):
@@ -424,7 +424,7 @@ def stats_of_block(block: np.ndarray, n: int):
 
 def _u32_np(t: torch.Tensor) -> np.ndarray:
     """A device int32 column as its host u32 numpy array."""
-    return t.cpu().numpy().view(np.uint32)
+    return dmerge.device_to_host(t).numpy().view(np.uint32)
 
 
 def _pull(tensors: list) -> list:
@@ -437,6 +437,7 @@ def _pull(tensors: list) -> list:
     hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
              for t in tensors]
     for h, t in zip(hosts, tensors):
+        cuda_lib.count_transfer("d2h", t.nbytes)
         h.copy_(t, non_blocking=True)
     torch.cuda.current_stream(dev).synchronize()
     return [h.numpy() for h in hosts]
@@ -529,7 +530,8 @@ def collect_merge_resident(h: ResidentHandle):
     cat, prof = h.cat, h.prof
     counts_d, perm_out_d, cols, perm_d, packed_d = h.out
     t0 = _time.perf_counter()
-    n_keep, n_amb, n_exp_kept = (int(x) for x in counts_d.cpu().tolist())
+    n_keep, n_amb, n_exp_kept = (
+        int(x) for x in dmerge.device_to_host(counts_d).tolist())
     t1 = _time.perf_counter()
     _kprof.record_execute("merge.resident", t1 - t0)
     if prof is not None:
@@ -540,9 +542,9 @@ def collect_merge_resident(h: ResidentHandle):
         # host's full-value tie-break, kept expired cells need the
         # tombstone conversion's payload rewrite
         n = h.n
-        perm = perm_d.cpu().numpy().astype(np.int64)[:n]
+        perm = dmerge.device_to_host(perm_d).numpy().astype(np.int64)[:n]
         keep, amb, expired, shadowed = dmerge.unpack_masks(
-            packed_d.cpu().numpy()[:n])
+            dmerge.device_to_host(packed_d).numpy()[:n])
         pts_sorted = h.pts[perm] if h.pts is not None else None
         if amb.any():
             dmerge.host_tiebreak(cat, perm, keep, amb, shadowed,
@@ -555,7 +557,8 @@ def collect_merge_resident(h: ResidentHandle):
 
     # resident round: pull ONLY the kept permutation (the payload
     # gather's index vector) — the columns stay on the device
-    perm_kept = perm_out_d[:n_keep].cpu().numpy().astype(np.int64)
+    perm_kept = dmerge.device_to_host(
+        perm_out_d[:n_keep]).numpy().astype(np.int64)
     payload, off, val_start = _gather_payload(cat, perm_kept)
     if prof is not None:
         prof["gather"] = prof.get("gather", 0.0) \
@@ -763,9 +766,9 @@ class DeviceWriteLane:
             lo = _u32_np(seg["ts_l"]).astype(np.uint64)
             ts = ((h << np.uint64(32)) | lo) ^ np.uint64(1 << 63)
             ts = ts.astype(np.int64)
-            ldt = seg["ldt"].cpu().numpy()
-            ttl = seg["ttl"].cpu().numpy()
-            flags = seg["flags8"].cpu().numpy()
+            ldt = dmerge.device_to_host(seg["ldt"]).numpy()
+            ttl = dmerge.device_to_host(seg["ttl"]).numpy()
+            flags = dmerge.device_to_host(seg["flags8"]).numpy()
             meta = build_meta_block(ts, ldt, ttl, flags,
                                     _u32_np(seg["fl"]).astype("<u4"),
                                     _u32_np(seg["vr"]).astype("<u4"))

@@ -82,8 +82,17 @@ def host_to_device(a: np.ndarray, device) -> torch.Tensor:
     CPU the tensor shares the array's memory."""
     t = torch.from_numpy(a)
     if torch.device(device).type == "cuda":
+        cuda_lib.count_transfer("h2d", t.nbytes)
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def device_to_host(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's host copy (waiting for it, off a card); a copy off a
+    card counts toward cuda_lib's transfers."""
+    if t.device.type == "cuda":
+        cuda_lib.count_transfer("d2h", t.nbytes)
+    return t.cpu()
 
 
 def operands_to_device(operands: dict, device) -> dict:
@@ -1155,7 +1164,7 @@ def collect_merge(h: DeviceMergeHandle) -> CellBatch:
     pts = h.purgeable_ts_fn(cat).astype(np.int64) \
         if h.purgeable_ts_fn is not None and not inert else None
     t1 = _time.perf_counter()
-    combined = h.fut.cpu().numpy()
+    combined = device_to_host(h.fut).numpy()
     t2 = _time.perf_counter()
     _kprof.record_execute(h.kernel, t2 - t1)
 

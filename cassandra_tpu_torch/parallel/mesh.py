@@ -46,7 +46,7 @@ import torch
 
 from .. import device as devmod
 from ..ops import costs, cuda_lib
-from ..ops.merge import (_check, merge_reconcile_kernel,
+from ..ops.merge import (_check, device_to_host, merge_reconcile_kernel,
                          operands_to_device, reconcile_plain,
                          sort_perm_plain)
 from ..service.profiling import GLOBAL as _kprof
@@ -297,7 +297,7 @@ def sharded_merge_step(mesh: Mesh):
         first = devices[0]
         if len(parts) == 1:
             perm, packed, stats = parts[0][1]
-            return perm, packed, stats.cpu()
+            return perm, packed, device_to_host(stats)
         perm = torch.empty((S,) + tuple(parts[0][1][0].shape[1:]),
                            dtype=torch.int32, device=first)
         packed = torch.empty(perm.shape, dtype=torch.uint8, device=first)
@@ -306,7 +306,7 @@ def sharded_merge_step(mesh: Mesh):
             rows = torch.tensor(idx, device=first)
             perm[rows] = p.to(first)
             packed[rows] = m.to(first)
-            stats += st.cpu()
+            stats += device_to_host(st)
         return perm, packed, stats
 
     _step_cache[key] = step
@@ -374,7 +374,8 @@ def _merge_on(ops_np: dict, dev: torch.device):
     with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
         perm_d, packed_d = _shard_merge_program(
             operands_to_device(ops_np, dev))
-        return perm_d.cpu().numpy(), packed_d.cpu().numpy()
+        return (device_to_host(perm_d).numpy(),
+                device_to_host(packed_d).numpy())
 
 
 def _run_sharded(cat: CellBatch, mesh: Mesh, gc_before: int, now: int,

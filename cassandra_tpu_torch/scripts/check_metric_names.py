@@ -1,0 +1,383 @@
+"""CI check: every metric name registered in the codebase follows the
+documented scheme (docs/observability.md):
+
+    group(.sub)*.name — dot-separated, >= 2 components, each component
+    lowercase [a-z0-9_]+ (the first starting with a letter).
+
+Scanned call sites: .incr("...") / .hist("...") / .timer("...") /
+.counter("...") / .register_gauge("...") / .group("...") string literals
+(plain and f-strings) in the files the port's ctpulint walker finds
+(cassandra_tpu_torch/, this subpackage included, chip_smoke.py and
+kernel_ab.py).
+f-string placeholders ({...}) count as one valid component — dynamic
+parts like `table.{ks}.{name}.writes` pass structurally; their runtime
+values are the caller's contract.
+
+Names passed to a *group* facade (cfs.latency.hist("read_latency")) are
+single components: the group prefix supplies the rest.
+
+Beyond structure, every dotted name's TOP-LEVEL group must be one of
+the documented groups (KNOWN_GROUPS — the "Established groups" list in
+docs/observability.md plus the mesh.* data-plane group from
+docs/multichip.md, and the port's own PORT_GROUPS): a typo'd or
+undocumented group fails the check, so new groups land in the docs the
+same commit they land in code.
+
+Beyond the static scan, `main()` DIFFS THE DOCS AGAINST REALITY: a
+deterministic engine-level smoke run (writes, flush, mesh compaction,
+batched reads, slow query, audit, a fault) collects every metric name
+actually emitted and compares it — both directions — against the
+"Metric catalog" table in docs/observability.md:
+
+  - emitted but undocumented        -> FAIL (document it)
+  - documented but never emitted    -> FAIL (dead entry; delete it or
+                                      mark it `(conditional)` if the
+                                      smoke cannot deterministically
+                                      reach it)
+
+Catalog entries whose notes contain `(conditional)` or whose scope
+column says `cluster`/`transport` are exempt from the dead-entry
+direction (the engine smoke has no peers or wire clients) but still
+participate in the undocumented direction. Names only the port emits
+are catalogued in PORT_CATALOG, beside the module that emits them.
+
+The smoke's engine runs on --device (`cuda` by default, which raises
+without a card; `cpu` runs the kernels' plain PyTorch versions):
+
+    python -m cassandra_tpu_torch.scripts.check_metric_names [--device cpu]
+    python -m cassandra_tpu_torch.scripts.check_metric_names --scan-only
+
+Exit 0 = clean; exit 1 prints each violation.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+
+# the checkout's root: docs/ lives there
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# whole-file scan (\s* spans newlines): a literal on the line AFTER the
+# open paren is still validated
+CALL_RE = re.compile(
+    r"\.(incr|hist|timer|counter|register_gauge|group)\(\s*f?([\"'])"
+    r"(?P<name>[^\"']+)\2")
+
+COMPONENT = r"[a-z][a-z0-9_]*"
+ANY_COMPONENT = r"(?:[a-z0-9_]+|X)"      # X = collapsed f-placeholder
+FULL_RE = re.compile(rf"^{COMPONENT}(\.{ANY_COMPONENT})+$")
+PREFIX_RE = re.compile(rf"^{COMPONENT}(\.{ANY_COMPONENT})*$")
+SINGLE_RE = re.compile(r"^[a-z][a-z0-9_]*$")
+
+# the documented top-level groups (docs/observability.md "Established
+# groups" + the mesh.* group from docs/multichip.md)
+KNOWN_GROUPS = {
+    "audit", "client_requests", "clients", "commitlog", "compaction",
+    "compress_pool", "controller", "cql", "flush", "hints", "history",
+    "index", "mesh",
+    "pipeline", "prepared_statements", "profile", "reads", "request",
+    "scan", "slo", "storage", "streaming", "system", "table", "verb",
+}
+
+
+# names only the port emits, with the module that emits them: the port's
+# own group. docs/observability.md is the JAX package's catalog and
+# stays as it is, so they are listed here.
+PORT_EMITTERS = "cassandra_tpu_torch/ops/device_write.py"
+# the device-resident lane's writer counts each stream's LZ4 blocks
+# (DeviceWriteLane: w._metrics is the store's compaction group)
+PORT_GROUPS = {"device_pack": PORT_EMITTERS}
+PORT_CATALOG = {
+    f"compaction.device_pack.{kind}.{stream}": PORT_EMITTERS
+    for kind in ("tried", "compressed")
+    for stream in ("meta", "lanes", "payload")}
+
+
+def _collapse_placeholders(name: str) -> str:
+    return re.sub(r"\{[^{}]*\}", "X", name)
+
+
+def check_name(method: str, raw: str) -> bool:
+    name = _collapse_placeholders(raw)
+    if method == "group":
+        # dotless prefixes are indistinguishable from re.Match.group()
+        # captures — only dotted prefixes get the group check
+        return (PREFIX_RE.match(name) is not None
+                and ("." not in name or _known_group(name)))
+    if "." in name:
+        return (FULL_RE.match(name) is not None
+                and _known_group(name))
+    # dotless: a group-member name (one component) — the group facade
+    # supplied (and already validated) the prefix
+    return SINGLE_RE.match(name) is not None
+
+
+def _known_group(name: str) -> bool:
+    top = name.split(".", 1)[0]
+    # an f-placeholder top group is the caller's contract, not ours
+    return top == "X" or top in KNOWN_GROUPS or top in PORT_GROUPS
+
+
+def scan(paths=None) -> list[tuple[str, int, str, str]]:
+    """[(relpath, lineno, method, name)] violations."""
+    if paths is None:
+        # module discovery is the port's ctpulint walker's
+        # (cassandra_tpu_torch/analysis/walker.py), with its own roots
+        # (the package, this subpackage included, chip_smoke.py and
+        # kernel_ab.py): both tools answer "what are the project's
+        # modules" identically, so a file one scans and the other
+        # misses cannot exist
+        from cassandra_tpu_torch.analysis.walker import project_files
+        self_rel = os.path.relpath(os.path.abspath(__file__), REPO)
+        paths = project_files(REPO, exclude=(self_rel,))
+    bad = []
+    for p in sorted(paths):
+        with open(p, encoding="utf-8") as f:
+            text = f.read()
+        for m in CALL_RE.finditer(text):
+            method, name = m.group(1), m.group("name")
+            if not check_name(method, name):
+                lineno = text.count("\n", 0, m.start()) + 1
+                bad.append((os.path.relpath(p, REPO), lineno,
+                            method, name))
+    return bad
+
+
+# ------------------------------------------------------- docs <-> smoke --
+
+# histogram snapshot suffixes collapse onto the base hist name
+_HIST_SUFFIXES = (".count", ".mean_us", ".p50_us", ".p95_us",
+                  ".p99_us", ".max_us")
+# components replaced by X during normalization: the smoke run's
+# keyspace/table names and any `<placeholder>` from the docs
+_SMOKE_DYNAMIC = {"smoke", "t", "sc"}
+
+
+def normalize_name(name: str) -> str:
+    """Collapse an EMITTED metric name to its documented pattern:
+    hist-snapshot suffixes stripped, dynamic components (the smoke
+    fixture's keyspace/table, per-statement cql kinds, per-verb names,
+    pipeline/stage names) replaced by X."""
+    for suf in _HIST_SUFFIXES:
+        if name.endswith(suf):
+            name = name[: -len(suf)]
+            break
+    parts = [("X" if p in _SMOKE_DYNAMIC else p)
+             for p in name.split(".")]
+    # per-statement counters (`cql.{kind}`) and per-verb counters
+    # (`verb.{verb}.received`) are open-ended families: one catalog row
+    if parts[0] == "cql" and len(parts) == 2 \
+            and parts[1] not in ("request", "slow_queries"):
+        parts[1] = "X"
+    if parts[0] == "verb" and len(parts) == 3:
+        parts[1] = "X"
+    # pipeline stats: `pipeline.<pipeline>.<stage>.<stat>` — the
+    # pipeline/stage catalog lives in the ledger doc section; the
+    # metric catalog carries one row per STAT
+    if parts[0] == "pipeline" and len(parts) == 4:
+        parts[1] = parts[2] = "X"
+    # per-consistency-level client-request hists
+    # (`client_requests.<verb>.<cl>`) are an open-ended family: one
+    # catalog row per verb
+    if parts[0] == "client_requests" and len(parts) == 3:
+        parts[2] = "X"
+    return ".".join(parts)
+
+
+def normalize_doc(name: str) -> str:
+    """Collapse a DOCUMENTED metric name: `<ks>`-style placeholders
+    become X."""
+    return re.sub(r"<[^>]+>", "X", name)
+
+
+def documented_catalog() -> dict[str, dict]:
+    """Parse the docs/observability.md Metric catalog table:
+    {normalized name: {raw, scope, notes}}. The table rows look like
+    `| `storage.writes` | engine | counter; ... |`."""
+    path = os.path.join(REPO, "docs", "observability.md")
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    m = re.search(r"## Metric catalog\n(.*?)(?:\n## |\Z)", text, re.S)
+    if not m:
+        return {}
+    out: dict[str, dict] = {}
+    for row in re.finditer(
+            r"^\|\s*`([^`]+)`\s*\|\s*([a-z]+)\s*\|\s*(.*?)\s*\|\s*$",
+            m.group(1), re.M):
+        raw, scope, notes = row.group(1), row.group(2), row.group(3)
+        out[normalize_doc(raw)] = {"raw": raw, "scope": scope,
+                                   "notes": notes}
+    return out
+
+
+def smoke_emitted(device=None) -> set[str]:
+    """Run the deterministic engine-level smoke workload on `device`
+    (`cuda` by default, which raises without a card) and return the
+    NORMALIZED set of metric names it emitted (registry snapshot +
+    engine-scoped gauges + per-table counter dict)."""
+    import tempfile
+
+    from cassandra_tpu_torch.config import Config, Settings
+    from cassandra_tpu_torch.cql import Session
+    from cassandra_tpu_torch.schema import Schema
+    from cassandra_tpu_torch.service import diagnostics
+    from cassandra_tpu_torch.service.metrics import GLOBAL
+    from cassandra_tpu_torch.storage.engine import StorageEngine
+    from cassandra_tpu_torch.utils import pipeline_ledger
+
+    with tempfile.TemporaryDirectory() as base:
+        settings = Settings(Config.load({
+            "diagnostic_events_enabled": True,
+            "compaction_mesh_devices": 2,
+            "disk_failure_policy": "best_effort",
+            "row_cache_size_mib": 4}))
+        eng = StorageEngine(
+            base, Schema(), commitlog_sync="batch",
+            settings=settings,
+            audit_log_path=os.path.join(base, "audit.jsonl"),
+            device=device)
+        try:
+            s = Session(eng)
+            s.execute("CREATE KEYSPACE smoke WITH replication = "
+                      "{'class': 'SimpleStrategy', "
+                      "'replication_factor': 1}")
+            s.execute("USE smoke")
+            s.execute("CREATE TABLE t (k int PRIMARY KEY, v text) "
+                      "WITH caching = "
+                      "{'rows_per_partition': 'ALL'}")
+            cfs = eng.store("smoke", "t")
+            # two generations so the major compaction + the batched
+            # mesh read both have real work
+            for gen in range(2):
+                for i in range(64):
+                    s.execute(f"INSERT INTO t (k, v) VALUES "
+                              f"({i}, 'v{gen}-{i}')")
+                cfs.flush()
+            eng.compactions.major_compaction(cfs)
+            # point + batched (mesh-fanned, >= 16 keys) + cached reads
+            s.execute("SELECT v FROM t WHERE k = 1")
+            s.execute("SELECT v FROM t WHERE k = 1")   # row-cache hit
+            keys = ", ".join(str(i) for i in range(32))
+            s.execute(f"SELECT v FROM t WHERE k IN ({keys})")
+            # slow-query path (threshold 0: everything is slow)
+            eng.monitor.threshold_ms = 0.0
+            s.execute("SELECT v FROM t WHERE k = 2")
+            # audit drop path: a wedged (closed) log file must count,
+            # not raise
+            eng.audit_log.close()
+            s.execute("SELECT v FROM t WHERE k = 3")
+            # one counted disk failure through the policy funnel
+            # (best_effort: nothing stops)
+            eng.failures.handle_disk(OSError(5, "smoke"), "smoke-path")
+            # observatory: one on-demand history sample (history.samples
+            # counter) — the retained-series layer must stay catalogued
+            eng.metrics_history.sample()
+            # control plane: one on-demand decision tick
+            # (controller.ticks counter)
+            eng.controller.tick()
+            # continuous profiler: one on-demand wall-clock capture
+            # (profile.samples counter) — layer 6 must stay catalogued
+            from cassandra_tpu_torch.service.sampler import GLOBAL as _sp
+            _sp.sample_once()
+            # analytical scan lane (ops/device_scan.py + the ZMP1 zone
+            # maps): eager index build at flush, pushdown row +
+            # aggregate queries, a provably-empty predicate (segment
+            # AND sstable prune), a host-pinned reference leg, a torn
+            # zone map (rebuild path) and an unsupported-kind fallback
+            s.execute("CREATE TABLE sc (k int PRIMARY KEY, "
+                      "v int, w varint)")
+            s.execute("CREATE INDEX ON sc (v)")
+            scs = eng.store("smoke", "sc")
+            for i in range(64):
+                s.execute(f"INSERT INTO sc (k, v, w) VALUES "
+                          f"({i}, {i % 8}, {i})")
+            scs.flush()                          # -> index.builds
+            from cassandra_tpu_torch.index import sstable_index as _ssi
+            for r in scs.live_sstables():        # torn component ->
+                os.remove(_ssi.zonemap_path(r.desc))   # ..rebuilds
+            s.execute("SELECT k FROM sc WHERE v = 3 ALLOW FILTERING")
+            s.execute("SELECT count(*) FROM sc WHERE v = 1000 "
+                      "ALLOW FILTERING")          # every segment pruned
+            s.execute("SELECT k FROM sc WHERE w = 5 "
+                      "ALLOW FILTERING")          # varint: fallback
+            from cassandra_tpu_torch.ops import device_scan as _ds
+            scs.scan_filtered(_ds.compile_predicate(  # host leg
+                scs.table, [(scs.table.columns["v"], "=", 1)]),
+                use_device=False)
+            s.execute("CREATE INDEX ON sc (w)")  # post-flush index:
+            s.execute("SELECT k FROM sc WHERE w = 5")  # lazy build
+            emitted = set(GLOBAL.snapshot())
+            emitted |= set(eng.compactions.gauges())
+            for st in eng.stores.values():
+                basek = f"table.{st.table.keyspace}.{st.table.name}"
+                emitted |= {f"{basek}.{k}" for k in st.metrics}
+                # derived per-table amplification gauges (served by the
+                # metrics vtable beside the counter dict)
+                emitted |= {f"{basek}.{k}"
+                            for k in st.amplification()}
+        finally:
+            eng.close()
+            diagnostics.GLOBAL.reset()
+            pipeline_ledger.reset_all()
+    return {normalize_name(n) for n in emitted}
+
+
+def diff_docs(emitted: set[str] | None = None,
+              device=None) -> list[str]:
+    """Both-direction diff of the docs catalog vs the smoke run;
+    returns violation strings (empty = clean)."""
+    catalog = documented_catalog()
+    if not catalog:
+        return ["docs/observability.md has no Metric catalog section"]
+    if emitted is None:
+        emitted = smoke_emitted(device)
+    problems = []
+    for name in sorted(emitted - set(catalog) - set(PORT_CATALOG)):
+        problems.append(f"emitted but not in the docs catalog: {name}")
+    for name, meta in sorted(catalog.items()):
+        if name in emitted:
+            continue
+        if "(conditional)" in meta["notes"] \
+                or meta["scope"] in ("cluster", "transport"):
+            continue   # unreachable from an engine-only smoke run
+        problems.append(
+            f"documented but never emitted (dead entry?): "
+            f"{meta['raw']}")
+    return problems
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m cassandra_tpu_torch.scripts.check_metric_names")
+    ap.add_argument("--scan-only", action="store_true",
+                    help="the static scan only, no engine smoke")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the engine smoke (default cuda)")
+    args = ap.parse_args(argv)
+    bad = scan()
+    if bad:
+        print("metric names outside the documented group.sub.name "
+              "scheme (docs/observability.md):", file=sys.stderr)
+        for path, lineno, method, name in bad:
+            print(f"  {path}:{lineno}  .{method}({name!r})",
+                  file=sys.stderr)
+        return 1
+    if not args.scan_only:
+        problems = diff_docs(device=args.device)
+        if problems:
+            print("docs/observability.md Metric catalog out of sync "
+                  "with the smoke run:", file=sys.stderr)
+            for p in problems:
+                print(f"  - {p}", file=sys.stderr)
+            return 1
+        print("metric names OK; docs catalog matches the smoke run")
+        return 0
+    print("metric names OK")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

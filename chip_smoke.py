@@ -68,7 +68,10 @@ result line:
               input's native leg over every component, and every output
               is read back and its cell count checked. The counters also
               split the launches by size (padded round N, segment cells).
-  5. read     the CQL read path: Session over StorageEngine(device=
+  5. read     a process of its own (chip_smoke.py --tools-part read,
+              started with phase 8's after phase 3, beside phase 4; its
+              data is its own), its sizes and legs back as JSON: the
+              CQL read path: Session over StorageEngine(device=
               "cuda"). scan.events (k int, c int, v int, PRIMARY KEY
               (k, c)): 500,000 partitions (a READ_PARTITIONS_CUT-th of
               1,000,000) x 10 rows, v uniform over
@@ -108,7 +111,7 @@ result line:
               reset before the cases and read after; then K8 is timed
               on each case's own operands.
   8. tools    two processes of their own (chip_smoke.py --tools-part),
-              started after phase 3 and run beside phases 4-6 (the
+              started after phase 3 and run beside phases 4 and 6 (the
               tools are host-bound Python), then waited for before
               phase 7, which covers their sizes; their output is printed
               after phase 6. The single-node tools on card engines, each
@@ -116,8 +119,10 @@ result line:
               of STRESS_ROWS_RUN rows into stress.standard1 (a key and
               four 34 B blobs; cassandra-stress's `write n=1000000`, cut
               to 200,000, printed as `reduced`) with a flush threshold
-              giving at least 4 sstables, stress.read of a tenth as many
-              keys (every read must hit), then the table's major
+              giving at least 4 sstables, stress.read of STRESS_READS_RUN
+              keys (every read must hit; a twentieth of the rows, cut
+              from a tenth and printed as `reduced`), then the table's
+              major
               compaction, compact_leg on a copy through
               CompactionTask(engine="device") with device compress off
               (K1-K4 must launch, K5 not) beside compact_leg on another
@@ -140,8 +145,8 @@ result line:
               before each device compaction and read just after (each
               process has its own); each part prints its wall seconds
               and the compactions their launches by kernel.
-  9. cluster  a third process of its own beside phases 4-6, like phase
-              8's parts: the in-process cluster (LocalCluster: 3 nodes,
+  9. cluster  a third process of its own beside phases 4 and 6, like
+              phase 8's parts: the in-process cluster (LocalCluster: 3 nodes,
               RF 3, every node's engine on the card, autocompaction
               off). (a) stress.write of CLUSTER_ROWS rows (cut from
               cassandra-stress's `write n=1000000 cl=QUORUM -schema
@@ -164,7 +169,8 @@ result line:
               device compaction and read just after; it prints each
               part's wall seconds, writes/s, reads/s and the launches
               of each node's compactions.
- 10. net      in phase 9's process, after it: three daemons (python -m
+ 10. net      a process of its own (--tools-part net), started with
+              phase 8's, beside phases 4 and 6: three daemons (python -m
               cassandra_tpu_torch.tools.noded, each a process of its own
               with its engine on the card), a static ring (even_tokens(3,
               vnodes=4)) over the TCP transport, RF 3 with explicit
@@ -196,6 +202,20 @@ result line:
               (every replica served its share on its card). Every
               daemon is stopped when the phase ends, and dies with its
               process if that is killed (die_with_parent).
+ 11. gates    in phase 8's harry process, after harry: the port's
+              tier-2 A/B gates and drills (cassandra_tpu_torch.scripts)
+              on the card, each in a directory of its own under the
+              smoke's work: check_compaction_ab (eleven compaction legs
+              at the gate's 3 x 200,000 cells and the flush A/B; its
+              resident device legs must launch K1-K4, device_compress
+              and device_compress_pool2 K5 too, and every device leg
+              must launch a kernel), check_scan_ab (the pushdown legs,
+              device and mesh2, must launch K9), check_readpath_ab,
+              check_writepath_ab, check_profiler, chaos_storage and
+              stress --smoke. Each must report zero divergence or exit
+              0; the launch counters are reset before each gate and read
+              after it; it prints each gate's wall seconds and its
+              launches by kernel, and its launch sizes join phase 7's.
   7. shapes   phase 3 again at every size the main paths launched that
               phase 3 did not cover (a round extended past 2^19 cells to
               its partition's end pads to 2^20; the scan mask's runs of
@@ -299,7 +319,8 @@ def phase_card() -> dict:
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda}
     print(f"card: {info['smi']} | torch {info['torch']} cuda "
-          f"{info['cuda']} | devices {info['count']}", flush=True)
+          f"{info['cuda']} | devices {info['count']} | host cpus "
+          f"{os.cpu_count()}", flush=True)
     return info
 
 
@@ -2314,8 +2335,14 @@ STRESS_ROWS = 1_000_000
 # to the floor of 200,000: the tools are host-bound Python (on the
 # H100's host, about 2,200 writes/s and 134 reads/s, PERF.md section
 # 5), so (a) and (b) take about 410 s, and phase 8 runs beside phases
-# 4-6 in processes of its own
+# 4 and 6 in processes of its own
 STRESS_ROWS_RUN = 200_000
+# stress.read's keys: a tenth of the rows before phase 5 left the main
+# process; the stress process is then the smoke's longest (its 20,000
+# reads took 152.0 s of its 397.4 s beside five other processes on the
+# H100's 8-core host, PERF.md section 5), so a twentieth (`reduced`)
+STRESS_READS = STRESS_ROWS_RUN // 10
+STRESS_READS_RUN = STRESS_ROWS_RUN // 20
 # at least this many sstables before the major compaction
 STRESS_SSTABLES = 4
 # memtable bytes a stress.standard1 row holds (key and four 34 B blobs,
@@ -2333,10 +2360,11 @@ HARRY_FLUSH_EVERY = 15_000
 HARRY_SKIP = ("del_range",)
 HARRY_DDL = ("CREATE TABLE t (k int, c int, v text, w int, st text static, "
              "m map<text,int>, PRIMARY KEY (k, c))")
-# phase 8's processes and phase 9's, each run beside phases 4-6
-TOOLS_PARTS = ("stress", "harry", "cluster")
-# seconds after the smoke's start by which the processes of phases 8
-# and 9 must end
+# the processes started after phase 3, each run beside phases 4 and 6:
+# phase 8's two (harry's runs phase 11 after it), phase 9's, phase 10's
+# and phase 5's
+TOOLS_PARTS = ("stress", "harry", "cluster", "net", "read")
+# seconds after the smoke's start by which those processes must end
 TOOLS_DEADLINE_S = 1000
 
 
@@ -2467,8 +2495,9 @@ def tools_sstabletools(eng, s, cells: int, key: int) -> dict:
 
 
 def tools_stress(work: str, n: int, ids: dict) -> dict:
-    """(a) stress.write of n rows into stress.standard1, n/10
-    stress.read (all must hit), then the table's major compaction with
+    """(a) stress.write of n rows into stress.standard1, stress.read
+    of STRESS_READS_RUN keys a STRESS_ROWS_RUN rows (all must hit),
+    then the table's major compaction with
     device compress off (K1-K4 through the resident program) beside a
     native one; (b) COPY and (c) sstabletools on an engine reopened
     over the device leg's output. Each part's wall seconds."""
@@ -2495,9 +2524,10 @@ def tools_stress(work: str, n: int, ids: dict) -> dict:
         n_sst = len(cfs.live_sstables())
         need(n_sst >= STRESS_SSTABLES,
              f"stress: {n_sst} sstables, fewer than {STRESS_SSTABLES}")
-        r = stress.read(s, n // 10, keys=n)
-        need(r["hits"] == n // 10,
-             f"stress: {r['hits']} of {n // 10} reads hit")
+        reads = n * STRESS_READS_RUN // STRESS_ROWS_RUN
+        r = stress.read(s, reads, keys=n)
+        need(r["hits"] == reads,
+             f"stress: {r['hits']} of {reads} reads hit")
         table = cfs.table
     finally:
         eng.close()
@@ -2882,7 +2912,7 @@ NET_CONNECTIONS = 4
 # `reduced`): each replica applies them through its commit log, which
 # fsyncs every mutation. At 100,000 the load took 194.9 s alone on the
 # card's host (513 rows/s), past the room phase 9's process has beside
-# phases 4-6, so it runs at its floor
+# phases 4 and 6, so it runs at its floor
 NET_VECTORS = 20_000
 NET_QUORUM_READS = 1_000
 NET_ANN = ((10, 20), (100, 2))            # (k, queries) at ALL
@@ -3340,44 +3370,150 @@ def tools_net(seed: int, work: str, ids: dict,
             "ann": ann, "bulkload": load}
 
 
-def tools_child(part: str, seed: int, work: str) -> int:
-    """One process of phase 8 or 9 (`part` of TOOLS_PARTS; phase 9's
-    process runs phase 10 after it), on the kernels phase 2 built, or
-    phase 10 alone (`net`): its lines on stdout, its result as JSON in
-    work/tools-<part>.json."""
+# ----------------------------------------------------------- 11. gates --
+
+# the port's tier-2 gates phase 11 runs, in this order
+GATES = ("check_compaction_ab", "check_scan_ab", "check_readpath_ab",
+         "check_writepath_ab", "check_profiler", "chaos_storage",
+         "stress_smoke")
+# the compaction gate's legs through the device-resident lane, and
+# those with device compression on (its mesh legs drain through the
+# host writer: the plane programs, no resident round and no K5)
+GATE_RESIDENT_LEGS = ("device", "device_compress", "device_compress_pool2")
+GATE_COMPRESS_LEGS = ("device_compress", "device_compress_pool2")
+GATE_DEVICE_LEGS = GATE_RESIDENT_LEGS + ("device_mesh2",
+                                         "device_compress_mesh2")
+
+
+def _gate_run(name: str, base: str, launches: dict) -> list:
+    """One gate on DEVICE in its own directory: its divergences or
+    violations (an empty list is a pass); the A/B gates that report
+    their legs' launches put them in `launches`."""
+    import importlib
+
+    if name == "stress_smoke":
+        from cassandra_tpu_torch.scripts import stress
+        rc = stress.smoke(DEVICE, base_dir=base)
+        return [] if rc == 0 else [f"stress --smoke exit code {rc}"]
+    mod = importlib.import_module(f"cassandra_tpu_torch.scripts.{name}")
+    if name == "chaos_storage":
+        return mod.run_drill(base, device=DEVICE)
+    if name in ("check_compaction_ab", "check_scan_ab"):
+        return mod.run_check(base, device=DEVICE, launches=launches)
+    return mod.run_check(base, device=DEVICE)
+
+
+def _by_kid(ids: dict, launches: dict) -> dict:
+    return {ids[k]: v for k, v in launches.items() if k in ids and v}
+
+
+def tools_gates(work: str, ids: dict) -> dict:
+    """Phase 11: the port's gates (GATES) on the card, each in a
+    directory of its own under work/gates, the launch counters reset
+    before each and read after it."""
     from cassandra_tpu_torch.ops import cuda_lib
 
+    secs, legs = {}, []
+    t_all = time.perf_counter()
+    for name in GATES:
+        base = os.path.join(work, "gates", name)
+        os.makedirs(base)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        leg_launches: dict = {}
+        errs = _gate_run(name, base, leg_launches)
+        torch.cuda.synchronize()
+        secs[f"gate_{name}"] = time.perf_counter() - t0
+        launches = _kernel_launches(ids)
+        sizes = _launch_sizes(ids)
+        shutil.rmtree(base, ignore_errors=True)
+        need(errs == [], f"gates: {name}: " + " | ".join(errs[:3]))
+        print(f"  gate {name}: zero divergence in "
+              f"{secs[f'gate_{name}']:.3f} s; launches "
+              + json.dumps({k: v for k, v in launches.items() if v}),
+              flush=True)
+        if name == "check_compaction_ab":
+            per_leg = {tag: _by_kid(ids, n)
+                       for tag, n in leg_launches.items()}
+            print("    launches by leg " + json.dumps(per_leg), flush=True)
+            for tag in GATE_RESIDENT_LEGS:
+                for kid in ("K1", "K2", "K3", "K4"):
+                    need(per_leg[tag].get(kid, 0) > 0,
+                         f"gates: compaction leg {tag}: {kid} was not "
+                         "launched")
+            for tag in GATE_COMPRESS_LEGS:
+                need(per_leg[tag].get("K5", 0) > 0,
+                     f"gates: compaction leg {tag}: K5 was not launched")
+            for tag in GATE_DEVICE_LEGS:
+                need(sum(per_leg[tag].values()) > 0,
+                     f"gates: compaction leg {tag} launched no kernel")
+        elif name == "check_scan_ab":
+            per_leg = {leg: _by_kid(ids, n)
+                       for leg, n in leg_launches.items()}
+            print("    launches by leg " + json.dumps(per_leg), flush=True)
+            for leg in ("device", "mesh2"):
+                need(per_leg[leg].get("K9", 0) > 0,
+                     f"gates: scan leg {leg}: K9 was not launched")
+            for leg in ("naive", "host"):
+                need(not per_leg[leg].get("K9"),
+                     f"gates: scan leg {leg} launched K9")
+        legs.append({"name": name, "src": "gates", "launches": launches,
+                     "sizes": sizes})
+    secs["gates"] = time.perf_counter() - t_all
+    print("  gates: seconds " + json.dumps(
+        {k: round(v, 3) for k, v in secs.items()}), flush=True)
+    return {"seconds": secs, "legs": legs}
+
+
+def tools_child(part: str, seed: int, work: str) -> int:
+    """One process started after phase 3 (`part` of TOOLS_PARTS): phase
+    8's stress or harry (harry's then runs phase 11), phase 9, phase 10
+    or phase 5, on the kernels phase 2 built: its lines on stdout, its
+    result as JSON in work/tools-<part>.json, with its wall seconds."""
+    from cassandra_tpu_torch.ops import cuda_lib
+
+    t_start = time.perf_counter()
     cuda_lib.lib()
     ids = {name: kid for kid, name in KERNEL_NAMES.items()}
     if part == "stress":
         out = tools_stress(work, STRESS_ROWS_RUN, ids)
-    elif part == "net":                 # phase 10 alone
+    elif part == "net":
         out = tools_net(seed, work, ids)
     elif part == "cluster":
         out = tools_cluster(seed, work, ids)
-        net = tools_net(seed, work, ids)
-        out["seconds"].update(net["seconds"])
-        out["legs"] += net["legs"]
-        out["net"] = net
+    elif part == "read":
+        t0 = time.perf_counter()
+        out = phase_read(seed, SCAN_PARTITIONS // READ_PARTITIONS_CUT,
+                         ANN_ROWS, work)
+        out["seconds"] = {"read": time.perf_counter() - t0}
     else:
         out = tools_harry(seed, work, ids)
-    print(f"tools [{part}]: seconds " + json.dumps(
-        {k: round(v, 3) for k, v in out["seconds"].items()}), flush=True)
+        gates = tools_gates(work, ids)
+        out["seconds"].update(gates["seconds"])
+        out["legs"] += gates["legs"]
+    out["wall"] = time.perf_counter() - t_start
+    print(f"tools [{part}]: wall {out['wall']:.1f} s; seconds "
+          + json.dumps({k: round(v, 3) for k, v in out["seconds"].items()}),
+          flush=True)
     with open(os.path.join(work, f"tools-{part}.json"), "w") as f:
         json.dump(out, f, default=str)
     return 0
 
 
 def start_tools(seed: int, work: str) -> dict:
-    """The processes of phases 8 and 9 (TOOLS_PARTS), each a
+    """The processes of phases 5 and 8-11 (TOOLS_PARTS), each a
     chip_smoke.py of its own with its output in work/tools-<part>.log:
-    they run beside phases 4-6, so their host-bound Python shares the
-    host's cores and not the smoke's time. Each process keeps its own
-    launch counters."""
+    they run beside phases 4 and 6, so their host-bound Python shares
+    the host's cores and not the smoke's time. Each process keeps its
+    own launch counters."""
     if STRESS_ROWS_RUN != STRESS_ROWS:
         print(json.dumps({"reduced": {
             "phase": "tools", "stress_rows": STRESS_ROWS_RUN,
             "published": STRESS_ROWS}}))
+    if STRESS_READS_RUN != STRESS_READS:
+        print(json.dumps({"reduced": {
+            "phase": "tools", "stress_reads": STRESS_READS_RUN,
+            "before": STRESS_READS}}))
     procs = {}
     for part in TOOLS_PARTS:
         log = open(os.path.join(work, f"tools-{part}.log"), "w")
@@ -3389,11 +3525,22 @@ def start_tools(seed: int, work: str) -> dict:
     return procs
 
 
+def _add_sizes(into: dict, sizes: dict) -> None:
+    """Adds {kid: {size: launches}} to `into` (a size JSON gave back
+    as a string becomes its int again)."""
+    for kid, by in sizes.items():
+        into.setdefault(kid, {})
+        for size, c in by.items():
+            if isinstance(size, str):
+                size = int(size)
+            into[kid][size] = into[kid].get(size, 0) + c
+
+
 def finish_tools(procs: dict, deadline: float) -> dict:
-    """Waits for the processes of phases 8 and 9 (until `deadline` on the
+    """Waits for the processes of TOOLS_PARTS (until `deadline` on the
     perf_counter clock), prints their output, and fails where one
-    failed; merges their legs, launch sizes and seconds."""
-    out: dict = {"sizes": {}, "legs": [], "seconds": {}}
+    failed; merges their legs, launch sizes, seconds and walls."""
+    out: dict = {"sizes": {}, "legs": [], "seconds": {}, "walls": {}}
     for part, (proc, log) in procs.items():
         t0 = time.perf_counter()
         try:
@@ -3412,14 +3559,14 @@ def finish_tools(procs: dict, deadline: float) -> dict:
                                f"tools-{part}.json")) as f:
             res = json.load(f)
         out["seconds"].update(res["seconds"])
+        out["walls"][part] = res["wall"]
+        # phase 5 returns its sizes whole, the others by leg
+        _add_sizes(out["sizes"], res.get("sizes", {}))
         for leg in res["legs"]:
-            leg["sizes"] = {kid: {int(n): c for n, c in by.items()}
-                            for kid, by in leg["sizes"].items()}
-            for kid, by in leg["sizes"].items():
-                for size, c in by.items():
-                    out["sizes"].setdefault(kid, {})
-                    out["sizes"][kid][size] = (
-                        out["sizes"][kid].get(size, 0) + c)
+            if "sizes" in leg:
+                leg["sizes"] = {kid: {int(n): c for n, c in by.items()}
+                                for kid, by in leg["sizes"].items()}
+                _add_sizes(out["sizes"], leg["sizes"])
             out["legs"].append(leg)
     print("tools: seconds by part " + json.dumps(
         {k: round(v, 3) for k, v in out["seconds"].items()}), flush=True)
@@ -3430,7 +3577,7 @@ def finish_tools(procs: dict, deadline: float) -> dict:
 
 
 def stop_tools(procs: dict) -> None:
-    """Ends the processes of phases 8 and 9 that still run; phase 10's
+    """Ends the processes of TOOLS_PARTS that still run; phase 10's
     daemons die with theirs (die_with_parent)."""
     for proc, log in procs.values():
         if proc.poll() is None:
@@ -3565,26 +3712,22 @@ def main(argv=None) -> int:
         e2e = phase_e2e(args.seed, args.cells_per_run, work)
         print(f"e2e: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        read = phase_read(args.seed, SCAN_PARTITIONS // READ_PARTITIONS_CUT,
-                          ANN_ROWS, work)
-        print(f"read: {time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
         mesh = phase_mesh(args.seed, work, e2e["table"])
         print(f"mesh: {time.perf_counter() - t0:.1f} s", flush=True)
+        main_wall = time.perf_counter() - t_tools
         tools = finish_tools(procs, t_start + TOOLS_DEADLINE_S)
         print(f"tools: {time.perf_counter() - t_tools:.1f} s from its "
               f"start", flush=True)
     finally:
         stop_tools(procs)
         shutil.rmtree(work, ignore_errors=True)
-    for kid, by in read["sizes"].items():
-        e2e["sizes"][kid] = by
-    for part in (mesh, tools):
-        for kid, by in part["sizes"].items():
-            for size, c in by.items():
-                e2e["sizes"].setdefault(kid, {})
-                e2e["sizes"][kid][size] = e2e["sizes"][kid].get(size, 0) + c
-    e2e["legs"] += read["legs"] + mesh["legs"] + tools["legs"]
+    walls = {"main (4, 6)": round(main_wall, 1),
+             **{part: round(w, 1) for part, w in tools["walls"].items()}}
+    print(f"processes: {os.cpu_count()} cpus; wall s " + json.dumps(walls),
+          flush=True)
+    _add_sizes(e2e["sizes"], mesh["sizes"])
+    _add_sizes(e2e["sizes"], tools["sizes"])
+    e2e["legs"] += mesh["legs"] + tools["legs"]
     # 7. the kernels at every other size the main paths launched
     seen = {kid: set(e2e["sizes"].get(kid, ())) for kid in KERNEL_NAMES}
     print("shapes: the main path launched " + json.dumps(
@@ -3592,7 +3735,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_kernels(args.seed, seen, res)
     print(f"shapes: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"total {time.perf_counter() - t_start:.1f} s; "
+          f"{os.cpu_count()} cpus; process walls s " + json.dumps(walls),
+          flush=True)
     print(json.dumps(kernels_line(res, e2e)))
     print(info["smi"])
     print(json.dumps({"ok": True, "device": {
